@@ -1,0 +1,53 @@
+"""Carry a built QAC index across as plain arrays.
+
+``qac_index_from_arrays`` turns the numpy leaves of a built index (the JAX
+package's ``QACIndex`` after ``np.asarray`` on each leaf) into this
+package's ``QACIndex`` on ``device``. It is how the engines
+are held against the JAX package on identical arrays, independently of the
+builder. Keys are ``"<component>.<field>"`` for arrays and meta alike, e.g.
+``"rmq_minimal.values"`` and ``"rmq_minimal.levels"``; meta also holds
+``"k_default"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .backend import resolve_device
+from .core.builder import QACIndex
+from .core.completions import Completions
+from .core.dictionary import TermDictionary
+from .core.inverted_index import InvertedIndex
+from .core.rmq import RangeMin
+
+COMPONENTS = {"dictionary": TermDictionary, "completions": Completions,
+              "index": InvertedIndex, "rmq_docids": RangeMin,
+              "rmq_minimal": RangeMin}
+
+
+def qac_index_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
+                          device=None) -> QACIndex:
+    """Build a ``QACIndex`` on ``device`` (default: the card) from numpy
+    arrays and integer meta fields; every field must be given exactly once."""
+    device = resolve_device(device)
+    used = set()
+    parts = {}
+    for comp, cls in COMPONENTS.items():
+        fields = {}
+        for f in dataclasses.fields(cls):
+            key = f"{comp}.{f.name}"
+            if key in arrays:
+                fields[f.name] = torch.tensor(np.ascontiguousarray(arrays[key]), device=device)
+            elif key in meta:
+                fields[f.name] = int(meta[key])
+            else:
+                raise KeyError(f"missing index field {key!r}")
+            used.add(key)
+        parts[comp] = cls(**fields)
+    extra = (set(arrays) | set(meta)) - used - {"k_default"}
+    if extra:
+        raise KeyError(f"unknown index fields {sorted(extra)}")
+    return QACIndex(**parts, k_default=int(meta["k_default"]))
+

@@ -1,0 +1,152 @@
+"""Scored query log -> QACIndex: ties every structure of paper §3.2 together.
+
+The host build is numpy (as in the JAX package) and the finished arrays move
+to the index's device once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..backend import resolve_device
+from .types import MAX_TERMS, MAX_TERM_CHARS
+from .dictionary import TermDictionary
+from .completions import Completions
+from .inverted_index import InvertedIndex
+from .rmq import RangeMin
+from .strings import encode_strings
+
+
+@dataclasses.dataclass(frozen=True)
+class QACIndex:
+    dictionary: TermDictionary
+    completions: Completions
+    index: InvertedIndex
+    rmq_docids: RangeMin        # over completions.docids (prefix-search top-k)
+    rmq_minimal: RangeMin       # over index.minimal (single-term queries)
+    k_default: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.index.postings.device
+
+
+def tokenize(s: str) -> list[str]:
+    return [t for t in s.strip().split() if t]
+
+
+def build_corpus(queries: Sequence[str], scores: Sequence[float],
+                 max_terms: int = MAX_TERMS,
+                 max_term_chars: int = MAX_TERM_CHARS, *,
+                 device: torch.device):
+    """Dedup + tokenize a scored query log (host side).
+
+    Returns (dictionary, term_rows int32[N,M], scores float64[N], kept_strings).
+    """
+    seen = {}
+    for q, s in zip(queries, scores):
+        toks = tokenize(q)
+        if not toks or len(toks) > max_terms:
+            continue
+        key = " ".join(toks)
+        seen[key] = max(seen.get(key, -np.inf), float(s))
+    kept = sorted(seen.keys())
+    sc = np.asarray([seen[kq] for kq in kept], dtype=np.float64)
+    vocab = sorted({t for q in kept for t in tokenize(q)})
+    dictionary = TermDictionary.build(vocab, max_term_chars, device=device)
+    tid = {t: i + 1 for i, t in enumerate(vocab)}  # 1-based lexicographic ids
+    rows = np.zeros((len(kept), max_terms), dtype=np.int32)
+    for i, q in enumerate(kept):
+        for j, t in enumerate(tokenize(q)):
+            rows[i, j] = tid[t]
+    return dictionary, rows, sc, kept
+
+
+def build_qac_index(queries: Sequence[str], scores: Sequence[float],
+                    k_default: int = 10,
+                    max_terms: int = MAX_TERMS,
+                    max_term_chars: int = MAX_TERM_CHARS,
+                    postings_codec: str | None = None,
+                    device=None):
+    """Full pipeline: scored log -> (QACIndex, kept strings, scores).
+
+    ``device`` defaults to the card (see ``backend.resolve_device``).
+    Postings are raw CSR only: the compressed layouts ("ef", "bitpack") of
+    the JAX package come with the port's packed slice and raise
+    ``NotImplementedError`` until then.
+    """
+    if postings_codec in ("ef", "bitpack"):
+        raise NotImplementedError(
+            f"postings_codec={postings_codec!r}: compressed postings are not "
+            "ported yet; build with postings_codec=None")
+    if postings_codec is not None:
+        raise ValueError(f"unknown postings_codec {postings_codec!r}")
+    device = resolve_device(device)
+    dictionary, rows, sc, kept = build_corpus(
+        queries, scores, max_terms, max_term_chars, device=device)
+    comps = Completions.build(rows, sc, device=device)
+    # row -> docid mapping on host for the index builder
+    order = np.lexsort(
+        tuple(rows[:, j] for j in range(rows.shape[1] - 1, -1, -1)) + (-sc,)
+    )
+    d_of_row = np.empty(len(rows), dtype=np.int32)
+    d_of_row[order] = np.arange(len(rows), dtype=np.int32)
+    inv = InvertedIndex.build(rows, d_of_row, dictionary.n_terms, device=device)
+    qidx = QACIndex(
+        dictionary=dictionary,
+        completions=comps,
+        index=inv,
+        rmq_docids=RangeMin.build(comps.docids.cpu().numpy(), device=device),
+        rmq_minimal=inv.build_minimal_rmq(),
+        k_default=k_default,
+    )
+    return qidx, kept, sc
+
+
+def parse_queries(dictionary: TermDictionary, raw_queries: Sequence[str],
+                  max_terms: int = MAX_TERMS,
+                  max_term_chars: int = MAX_TERM_CHARS):
+    """Paper §3.1 "Parsing": split each raw query into prefix term-ids and a
+    (possibly incomplete) suffix. Host-side; prefix terms are located on the
+    dictionary's device.
+
+    A trailing space means the last term is complete -> it joins the prefix
+    and the suffix is empty (matches any term). Returns (prefix_ids
+    int32[B, M], prefix_len int32[B], prefix_ok bool[B] numpy, suffix
+    uint8[B, T], suffix_len int32[B]), tensors on the dictionary's device.
+    """
+    B = len(raw_queries)
+    prefix_ids = np.zeros((B, max_terms), dtype=np.int32)
+    prefix_len = np.zeros(B, dtype=np.int32)
+    prefix_ok = np.ones(B, dtype=bool)
+    suffix = np.zeros((B, max_term_chars), dtype=np.uint8)
+    suffix_len = np.zeros(B, dtype=np.int32)
+    all_terms = []
+    for q in raw_queries:
+        toks = tokenize(q)
+        ends_complete = q.endswith(" ") or q.endswith("\t")
+        pre = toks if ends_complete else toks[:-1]
+        all_terms.append((pre, "" if ends_complete or not toks else toks[-1]))
+    flat = [t for pre, _ in all_terms for t in pre]
+    device = dictionary.chars.device
+    ids = {}
+    if flat:
+        uniq = sorted(set(flat))
+        chars = torch.from_numpy(encode_strings(uniq, max_term_chars)).to(device)
+        ids = dict(zip(uniq, dictionary.locate(chars).cpu().tolist()))
+    for i, (pre, suf) in enumerate(all_terms):
+        pre = pre[: max_terms - 1]
+        for j, t in enumerate(pre):
+            tid = ids.get(t, 0)
+            prefix_ids[i, j] = tid
+            if tid == 0:
+                prefix_ok[i] = False
+        prefix_len[i] = len(pre)
+        b = suf.encode("utf-8")[:max_term_chars]
+        suffix[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+        suffix_len[i] = len(b)
+    to = lambda a: torch.from_numpy(a).to(device)
+    return to(prefix_ids), to(prefix_len), prefix_ok, to(suffix), to(suffix_len)

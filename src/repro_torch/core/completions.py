@@ -1,0 +1,52 @@
+"""Completions as integer (multi-)sets + the docids map (paper §3.2).
+
+The integer trie is a columnar sorted term matrix; the forward index
+(docid -> term set) is the same matrix indexed by docid, used by the
+conjunctive forward search.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Completions:
+    cols: torch.Tensor        # int32[M, N]: column j = j-th term of each lex-sorted completion
+    docids: torch.Tensor      # int32[N]: lex position -> docid (score rank, 0 = best)
+    fwd_terms: torch.Tensor   # int32[N, M]: docid -> term ids (the forward index)
+    n_terms_per: torch.Tensor  # int32[N]: docid -> number of terms
+    n: int
+    max_terms: int
+
+    @staticmethod
+    def build(term_rows: np.ndarray, scores: np.ndarray, *,
+              device: torch.device) -> "Completions":
+        """term_rows: int32[N, M] 1-based term ids (0 pad), one row per
+        completion. docid = rank under (-score, lexicographic row)."""
+        term_rows = np.asarray(term_rows, dtype=np.int32)
+        n, m = term_rows.shape
+        order = np.lexsort(tuple(term_rows[:, j] for j in range(m - 1, -1, -1)) + (-scores,))
+        docid_of_row = np.empty(n, dtype=np.int32)
+        docid_of_row[order] = np.arange(n, dtype=np.int32)
+        lex = np.lexsort(tuple(term_rows[:, j] for j in range(m - 1, -1, -1)))
+        cols = term_rows[lex].T.copy()                      # [M, N]
+        docids = docid_of_row[lex].copy()                   # [N]
+        fwd = np.zeros_like(term_rows)
+        fwd[docid_of_row] = term_rows                       # docid -> terms
+        nt = (term_rows != 0).sum(axis=1).astype(np.int32)
+        nterms = np.zeros(n, dtype=np.int32)
+        nterms[docid_of_row] = nt
+        t = lambda a: torch.from_numpy(a).to(device)
+        return Completions(cols=t(cols), docids=t(docids), fwd_terms=t(fwd),
+                           n_terms_per=t(nterms), n=n, max_terms=m)
+
+    def extract(self, docid: torch.Tensor):
+        """docid[...] -> (term_ids int32[..., M], n_terms[...]).
+        INF or otherwise invalid docids give zeros."""
+        valid = (docid >= 0) & (docid < self.n)
+        idx = docid.clamp(0, self.n - 1)
+        row = torch.where(valid[..., None], self.fwd_terms[idx], 0)
+        return row, torch.where(valid, self.n_terms_per[idx], 0)

@@ -1,0 +1,69 @@
+"""The inverted index (paper §3.2) in CSR form + the ``minimal`` array.
+
+Lists are docid-ascending == score-descending, so "first k" == "top-k". The
+``minimal`` array (first docid of every list) feeds the single-term RMQ
+engine (paper §3.3). Only raw CSR postings exist in this port so far; the
+compressed device layout of the JAX package comes with the packed slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .types import INF_DOCID
+from .rmq import RangeMin
+
+
+@dataclasses.dataclass(frozen=True)
+class InvertedIndex:
+    postings: torch.Tensor   # int32[P] concatenated docid lists (ascending)
+    offsets: torch.Tensor    # int32[V+2] list boundaries, indexed by 1-based term id
+    minimal: torch.Tensor    # int32[V+2] first docid per list (INF if empty)
+    n_terms: int
+    n_postings: int
+
+    @staticmethod
+    def build(term_rows: np.ndarray, docid_of_row: np.ndarray, n_terms: int,
+              *, device: torch.device) -> "InvertedIndex":
+        """term_rows int32[N, M] (1-based ids, 0 pad); docid_of_row int32[N]."""
+        term_rows = np.asarray(term_rows, dtype=np.int64)
+        n, m = term_rows.shape
+        docs = np.broadcast_to(np.asarray(docid_of_row, dtype=np.int64)[:, None], (n, m))
+        mask = term_rows != 0
+        t = term_rows[mask]
+        d = docs[mask]
+        # dedup (term, doc) pairs — a term may repeat inside one completion
+        key = t * (np.int64(docid_of_row.max()) + 1) + d
+        uniq = np.unique(key)
+        t = (uniq // (np.int64(docid_of_row.max()) + 1)).astype(np.int64)
+        d = (uniq % (np.int64(docid_of_row.max()) + 1)).astype(np.int64)
+        order = np.lexsort((d, t))
+        t, d = t[order], d[order]
+        cnt = np.bincount(t, minlength=n_terms + 1)  # indexed by 1-based term id
+        offsets = np.zeros(n_terms + 2, dtype=np.int32)
+        offsets[1 : len(cnt) + 1] = np.cumsum(cnt)
+        offsets[len(cnt) + 1 :] = len(d)
+        minimal = np.full(n_terms + 2, INF_DOCID, dtype=np.int32)
+        starts = offsets[:-1]
+        ends = offsets[1:]
+        nonempty = ends > starts
+        minimal[:-1][nonempty] = d[starts[nonempty]]
+        to = lambda a: torch.from_numpy(a).to(device)
+        return InvertedIndex(postings=to(d.astype(np.int32)), offsets=to(offsets),
+                             minimal=to(minimal), n_terms=n_terms,
+                             n_postings=len(d))
+
+    def list_bounds(self, term_id: torch.Tensor):
+        t = term_id.clamp(0, self.n_terms)
+        return self.offsets[t], self.offsets[t + 1]
+
+    def list_len(self, term_id: torch.Tensor) -> torch.Tensor:
+        s, e = self.list_bounds(term_id)
+        return e - s
+
+    def build_minimal_rmq(self) -> RangeMin:
+        """RMQ over the minimal array for single-term queries (paper §3.3)."""
+        return RangeMin.build(self.minimal.cpu().numpy(),
+                              device=self.minimal.device)

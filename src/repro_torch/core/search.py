@@ -1,0 +1,160 @@
+"""QAC search engines (paper §3.1, §3.3), batch-native.
+
+  * ``single_term_topk_bounded_batch`` — paper §3.3 "Single-Term Queries":
+    RMQ over the ``minimal`` array with lazily instantiated posting-list
+    iterators, as a dense-slot loop with a caller-chosen trip budget.
+  * ``conjunctive_multi_batch`` — Fig 5 (Fwd): intersection of the prefix
+    posting lists iterated in docid (= score) order, forward-index range
+    check, first-k compaction.
+
+Kernel routing on the card (``use_kernel=True``, the default there): the
+single-term engine runs the whole trip loop in the ``heap_topk`` kernel
+unless the caller passes ``heap_kernel=False``, and then it runs the same
+loop one pop at a time with each pop's RMQ in the ``rmq`` kernel; the
+multi-term engine probes with the ``intersect`` kernel. ``use_kernel=False``
+runs the plain PyTorch versions on whatever device the index is on. Routing
+never changes answers. The index lives in device memory, so no route is
+gated on its size; a routing rule measured on the card is still to come.
+
+Results are docids, ascending == best-score-first; INF_DOCID pads.
+"""
+from __future__ import annotations
+
+import torch
+
+from .types import INF_DOCID
+from .inverted_index import InvertedIndex
+from .rmq import RangeMin
+
+INT32_MAX = 2**31 - 1
+
+
+def check_postings_codec(postings_codec: str | None) -> None:
+    """Only raw CSR postings are ported so far."""
+    if postings_codec in (None, "auto", "raw"):
+        return
+    if postings_codec in ("ef", "bitpack"):
+        raise NotImplementedError(
+            f"postings_codec={postings_codec!r}: compressed postings are not "
+            "ported yet")
+    raise ValueError(f"unknown postings_codec {postings_codec!r}")
+
+
+def describe_single_route(*, use_kernel: bool,
+                          heap_kernel: bool | None = None) -> str:
+    """The route ``single_term_topk_bounded_batch`` takes for these knobs:
+    ``"heap_topk[raw]"``, ``"per_pop_rmq[kernel]"`` or ``"torch_ref"``."""
+    if not use_kernel:
+        return "torch_ref"
+    return "per_pop_rmq[kernel]" if heap_kernel is False else "heap_topk[raw]"
+
+
+def single_term_topk_bounded_batch(index: InvertedIndex, rmq_minimal: RangeMin,
+                                   term_lo, term_hi, k: int, trips: int, *,
+                                   use_kernel: bool = False,
+                                   heap_kernel: bool | None = None,
+                                   postings_codec: str | None = None):
+    """Single-term top-k over term ranges [term_lo, term_hi) int32[B].
+
+    Returns (out int32[B, k], done bool[B]). ``done`` is True iff the result
+    equals the full 2k-trip engine's; a full 2k budget is the exact engine
+    and never signals a fallback.
+    """
+    from ..kernels.heap_topk.ops import heap_topk
+    from ..kernels.heap_topk.ref import heap_topk_ref
+
+    check_postings_codec(postings_codec)
+    trips = min(trips, 2 * k)
+    bad = term_lo >= term_hi
+    args = (rmq_minimal.values, rmq_minimal.st_pos, rmq_minimal.ib,
+            index.offsets, index.postings, term_lo, term_hi)
+    kw = dict(k=k, trips=trips, n=rmq_minimal.n, n_terms=index.n_terms)
+    route = describe_single_route(use_kernel=use_kernel, heap_kernel=heap_kernel)
+    if route == "heap_topk[raw]":
+        out, done = heap_topk(*args, **kw)
+    elif route == "per_pop_rmq[kernel]":
+        out, done = heap_topk_ref(*args, **kw, rmq_fn=lambda p, q:
+                                  rmq_minimal.query_batch(p, q, use_kernel=True))
+    else:
+        out, done = heap_topk_ref(*args, **kw)
+    done = bad | done | (trips >= 2 * k)
+    return torch.where(bad[:, None], INF_DOCID, out), done
+
+
+def single_term_topk_batch(index: InvertedIndex, rmq_minimal: RangeMin,
+                           term_lo, term_hi, k: int, *,
+                           use_kernel: bool = False,
+                           heap_kernel: bool | None = None,
+                           postings_codec: str | None = None):
+    """Full 2k-trip budget, always exact -> out int32[B, k]."""
+    out, _ = single_term_topk_bounded_batch(
+        index, rmq_minimal, term_lo, term_hi, k, 2 * k, use_kernel=use_kernel,
+        heap_kernel=heap_kernel, postings_codec=postings_codec)
+    return out
+
+
+def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
+                            prefix_len, term_lo, term_hi, k: int, *,
+                            tile: int = 128, max_tiles: int = 4096,
+                            use_kernel: bool = False, probe_iters: int = 0,
+                            postings_codec: str | None = None):
+    """Conjunctive top-k: prefix_ids int32[B, PMAX], the rest int32[B].
+
+    The shortest prefix list drives: each step takes one ``tile``-wide chunk
+    of it for every lane and probes the other lists' ``[start, end)`` spans
+    in ``postings`` with ``conjunctive_scan`` (the CUDA kernel with
+    ``use_kernel``, else its plain version). An empty list that a lane needs
+    kills the lane. Per-lane progress is masked: a finished lane stops
+    advancing while others continue. The loop runs while any lane is active,
+    a host sync per tile. ``probe_iters`` caps the binary-search depth
+    (callers that know the longest probed list pass its bound); 0 uses
+    ``log2(n_postings) + 1``.
+    """
+    from ..kernels.intersect.ops import conjunctive_scan
+    from ..kernels.intersect.ref import conjunctive_scan_ref
+
+    check_postings_codec(postings_codec)
+    scan = conjunctive_scan if use_kernel else conjunctive_scan_ref
+    dev = prefix_ids.device
+    B, PMAX = prefix_ids.shape
+    rows = torch.arange(B, device=dev)
+    slots = torch.arange(PMAX, device=dev)
+    valid_t = slots[None, :] < prefix_len[:, None]                  # [B, PMAX]
+    starts, ends = index.list_bounds(prefix_ids)                   # [B, PMAX]
+    lens = torch.where(valid_t, ends - starts, INT32_MAX)
+    driver = torch.argmin(lens, dim=1)                             # first minimum
+    d_start = starts[rows, driver]
+    d_end = ends[rows, driver]
+    d_len = d_end - d_start
+    n_post = index.postings.shape[0]
+    iters = probe_iters or min(31, max(1, n_post.bit_length()))
+    lane = torch.arange(tile, dtype=torch.int32, device=dev)
+    need = valid_t & (slots[None, :] != driver[:, None])           # [B, PMAX]
+    k_starts = torch.where(need, starts, 0).to(torch.int32)
+    k_ends = torch.where(need, ends, 0).to(torch.int32)
+    lane_dead = (need & (ends == starts)).any(dim=1)               # [B]
+
+    t = torch.zeros(B, dtype=torch.int32, device=dev)
+    found = torch.zeros(B, dtype=torch.int32, device=dev)
+    res = torch.full((B, k + 1), INF_DOCID, dtype=torch.int32, device=dev)
+    while True:
+        active = (t * tile < d_len) & (found < k) & (t < max_tiles)
+        if not bool(active.any()):
+            break
+        base = d_start + t * tile
+        in_list = (base[:, None] + lane[None, :]) < d_end[:, None]
+        cand = index.postings[(base[:, None] + lane[None, :]).clamp(max=n_post - 1)]
+        mask = scan(torch.where(in_list, cand, INF_DOCID), k_starts, k_ends,
+                    index.postings, completions.fwd_terms, term_lo, term_hi,
+                    iters=iters)
+        hits = mask & in_list & ~lane_dead[:, None] & active[:, None]
+        # first-k compaction in docid order (per lane); column k is the sink
+        pos_out = found[:, None] + torch.cumsum(hits.to(torch.int32), 1) - 1
+        write = hits & (pos_out < k)
+        res.scatter_(1, torch.where(write, pos_out, k).to(torch.int64),
+                     torch.where(write, cand, INF_DOCID))
+        found = (found + hits.sum(dim=1, dtype=torch.int32)).clamp(max=k)
+        t = torch.where(active, t + 1, t)
+    bad = ((term_lo >= term_hi) | (prefix_len <= 0)
+           | (valid_t & (prefix_ids == 0)).any(dim=1))
+    return torch.where(bad[:, None], INF_DOCID, res[:, :k])

@@ -1,0 +1,56 @@
+"""``heap_topk``: the whole bounded-trip single-term engine in one launch.
+
+On CUDA tensors it launches ``csrc/heap_topk.cu``; on CPU tensors it runs
+the plain version ``ref.heap_topk_ref``. Same contract either way:
+(out int32[B, k], done bool[B]). ``launches`` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import backend
+from .ref import heap_topk_ref
+
+launches = 0
+
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def heap_topk(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
+              k: int, trips: int, n: int, n_terms: int):
+    """values/st_pos/ib: the ``RangeMin`` over the ``minimal`` array (``n``
+    its true length); offsets/postings: the inverted index; term ranges
+    [term_lo, term_hi) per lane. See ``ref.heap_topk_ref``."""
+    global launches
+    if not values.is_cuda:
+        return heap_topk_ref(values, st_pos, ib, offsets, postings, term_lo,
+                             term_hi, k=k, trips=trips, n=n, n_terms=n_terms)
+    term_lo = term_lo.to(torch.int32).contiguous()
+    term_hi = term_hi.to(torch.int32).contiguous()
+    backend.require_cuda_int32("heap_topk", values=values, st_pos=st_pos,
+                               offsets=offsets, postings=postings,
+                               term_lo=term_lo, term_hi=term_hi)
+    if ib.dtype != torch.int8 or not ib.is_contiguous() or ib.device != values.device:
+        raise ValueError("heap_topk: ib must be a contiguous int8 tensor on the card")
+    if k < 1 or trips < 0:
+        raise ValueError(f"heap_topk: needs k >= 1 and trips >= 0, got {k}, {trips}")
+    levels, n_blocks = st_pos.shape
+    B = term_lo.shape[0]
+    out = torch.empty((B, k), dtype=torch.int32, device=values.device)
+    done = torch.empty(B, dtype=torch.bool, device=values.device)
+    if B == 0:
+        return out, done
+    fn = backend.load("heap_topk", "heap_topk_launch", _ARGS)
+    err = fn(backend.ptr(values), backend.ptr(ib), backend.ptr(st_pos),
+             n, values.shape[0], levels, n_blocks,
+             backend.ptr(offsets), backend.ptr(postings), postings.shape[0],
+             n_terms, backend.ptr(term_lo), backend.ptr(term_hi),
+             backend.ptr(out), backend.ptr(done), B, k, trips,
+             backend.stream(values.device))
+    backend.check("heap_topk", err)
+    launches += 1
+    return out, done

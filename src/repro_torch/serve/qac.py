@@ -1,0 +1,54 @@
+"""QAC serving entry points for class-pure batches (used by serve/frontend.py).
+
+Each runs on the device of the index it is given. ``use_kernel=None``
+resolves to the CUDA kernels on the card and the plain PyTorch versions on
+the CPU (``backend.default_use_kernel``).
+"""
+from __future__ import annotations
+
+from ..backend import default_use_kernel
+from ..core.builder import QACIndex
+from ..core.search import (conjunctive_multi_batch, single_term_topk_batch,
+                           single_term_topk_bounded_batch)
+
+
+def _use_kernel(qidx: QACIndex, use_kernel: bool | None) -> bool:
+    return default_use_kernel(qidx.device) if use_kernel is None else use_kernel
+
+
+def serve_single_term(qidx: QACIndex, suffix_chars, suffix_len, *, k: int = 10,
+                      trips: int | None = None, use_kernel: bool | None = None,
+                      heap_kernel: bool | None = None):
+    """Batched single-term serve (paper §3.3) -> (docids int32[B, k], done).
+
+    ``trips`` bounds the heap pops per lane (default k + 2); ``done[b]`` is
+    False where the budget was too small and the caller must fall back to
+    the full 2k-trip engine for exact results.
+    """
+    trips = (k + 2) if trips is None else trips
+    term_lo, term_hi = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
+    return single_term_topk_bounded_batch(
+        qidx.index, qidx.rmq_minimal, term_lo, term_hi, k, trips,
+        use_kernel=_use_kernel(qidx, use_kernel), heap_kernel=heap_kernel)
+
+
+def serve_single_term_full(qidx: QACIndex, suffix_chars, suffix_len, *,
+                           k: int = 10, use_kernel: bool | None = None,
+                           heap_kernel: bool | None = None):
+    """Batched single-term serve, full 2k-trip budget (always exact)."""
+    term_lo, term_hi = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
+    return single_term_topk_batch(
+        qidx.index, qidx.rmq_minimal, term_lo, term_hi, k,
+        use_kernel=_use_kernel(qidx, use_kernel), heap_kernel=heap_kernel)
+
+
+def serve_multi_term(qidx: QACIndex, prefix_ids, prefix_len, suffix_chars,
+                     suffix_len, *, k: int = 10, tile: int = 128,
+                     max_tiles: int = 4096, use_kernel: bool | None = None,
+                     probe_iters: int = 0):
+    """Batched conjunctive serve (Fig 5 Fwd) for a 100%-multi-term batch."""
+    term_lo, term_hi = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
+    return conjunctive_multi_batch(
+        qidx.index, qidx.completions, prefix_ids, prefix_len, term_lo, term_hi,
+        k, tile=tile, max_tiles=max_tiles,
+        use_kernel=_use_kernel(qidx, use_kernel), probe_iters=probe_iters)

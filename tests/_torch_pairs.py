@@ -1,0 +1,68 @@
+"""Shared inputs for the port's parity tests: one corpus built by the JAX
+package and carried into the port on identical arrays, plus partial-query
+batches. Inputs are made from seeds with numpy and passed between the two
+packages as numpy arrays."""
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro.core import build_qac_index
+from repro.text import SynthLogConfig, generate_query_log
+from repro_torch.convert import COMPONENTS, qac_index_from_arrays
+
+
+def qac_index_to_arrays(qidx) -> tuple[dict[str, np.ndarray], dict]:
+    """(arrays, meta) of a JAX or a port ``QACIndex``, as
+    ``qac_index_from_arrays`` takes them: each leaf through ``np.asarray``
+    (a tensor through ``.cpu().numpy()``); fields that are None (an index
+    built without compressed postings) are left out."""
+    arrays, meta = {}, {"k_default": int(qidx.k_default)}
+    for comp in COMPONENTS:
+        obj = getattr(qidx, comp)
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if v is None:
+                continue
+            if isinstance(v, int):
+                meta[f"{comp}.{f.name}"] = v
+            elif isinstance(v, torch.Tensor):
+                arrays[f"{comp}.{f.name}"] = v.cpu().numpy()
+            else:
+                arrays[f"{comp}.{f.name}"] = np.asarray(v)
+    return arrays, meta
+
+
+def build_pair(n_queries, vocab_size, seed, mean_term_chars=4.0):
+    """-> (JAX QACIndex, port QACIndex on the CPU, kept query strings)."""
+    qs, sc = generate_query_log(SynthLogConfig(
+        n_queries=n_queries, vocab_size=vocab_size,
+        mean_term_chars=mean_term_chars, seed=seed))
+    jq, kept, _ = build_qac_index(qs, sc, postings_codec=None)
+    arrays, meta = qac_index_to_arrays(jq)
+    return jq, qac_index_from_arrays(arrays, meta, device="cpu"), kept
+
+
+def partials(kept, rng, B, pct_single=50, pct_garbage=0):
+    """Random partial queries: pct_single% single-term, pct_garbage% with a
+    suffix that matches no term (an empty term range), the rest multi-term."""
+    multis = [q for q in kept if len(q.split()) >= 2] or kept
+    out = []
+    for _ in range(B):
+        r = rng.integers(0, 100)
+        if r < pct_garbage:
+            out.append("zzzzzzqx" if rng.integers(0, 2) else
+                       kept[rng.integers(0, len(kept))].split()[0] + " zzzzzzqx")
+        elif r < pct_garbage + pct_single:
+            t = kept[rng.integers(0, len(kept))].split()[0]
+            out.append(t[: rng.integers(1, len(t) + 1)])
+        else:
+            toks = multis[rng.integers(0, len(multis))].split()
+            cut = rng.integers(1, len(toks[-1]) + 1)
+            out.append(" ".join(toks[:-1] + [toks[-1][:cut]]))
+    return out
+
+
+def host(x):
+    """numpy view of a JAX array, a tensor or a numpy array."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)

@@ -1,0 +1,121 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a card; run them on the
+card with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_*.py``.
+This file imports nothing of JAX (the card's machine need not have it):
+the plain versions are the oracle, and they are held against the JAX
+package by the CPU tests. Integer outputs must be bit-identical; RMQ ``pos``
+is compared wherever ``val < INF``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import build_qac_index, parse_queries
+from repro_torch.kernels.heap_topk import ops as heap_ops
+from repro_torch.kernels.heap_topk.ref import heap_topk_ref
+from repro_torch.kernels.intersect import ops as isect_ops
+from repro_torch.kernels.intersect.ref import conjunctive_scan_ref
+from repro_torch.kernels.rmq import ops as rmq_ops
+from repro_torch.kernels.rmq.ref import rmq_window_batch
+from repro_torch.serve import QACFrontend
+from repro_torch.text import SynthLogConfig, generate_query_log
+
+INF = 2**31 - 1
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def built():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    qs, sc = generate_query_log(SynthLogConfig(n_queries=3000, vocab_size=300,
+                                               mean_term_chars=4.0, seed=3))
+    qidx, kept, _ = build_qac_index(qs, sc, device="cuda")
+    return qidx, kept
+
+
+def _partials(kept, rng, B, pct_single=50, pct_garbage=10):
+    multis = [q for q in kept if len(q.split()) >= 2]
+    out = []
+    for _ in range(B):
+        r = rng.integers(0, 100)
+        if r < pct_garbage:
+            out.append("zzzzzzqx")
+        elif r < pct_garbage + pct_single:
+            t = kept[rng.integers(0, len(kept))].split()[0]
+            out.append(t[: rng.integers(1, len(t) + 1)])
+        else:
+            toks = multis[rng.integers(0, len(multis))].split()
+            out.append(" ".join(toks[:-1] + [toks[-1][: rng.integers(1, len(toks[-1]) + 1)]]))
+    return out
+
+
+def test_rmq_kernel_matches_plain(built):
+    qidx, _ = built
+    rm = qidx.rmq_docids
+    rng = np.random.default_rng(0)
+    p = torch.tensor(rng.integers(-5, rm.n + 5, 4096), dtype=torch.int32, device="cuda")
+    q = torch.tensor(rng.integers(-5, rm.n + 5, 4096), dtype=torch.int32, device="cuda")
+    q[:512] = p[:512] + torch.tensor(rng.integers(0, 128, 512), dtype=torch.int32, device="cuda")
+    before = rmq_ops.launches
+    pos, val = rmq_ops.rmq_query(rm.values, rm.ib, rm.st_pos, p, q, n=rm.n)
+    torch.cuda.synchronize()
+    assert rmq_ops.launches == before + 1
+    wpos, wval = rmq_window_batch(rm.values, rm.ib, rm.st_pos, p, q, n=rm.n)
+    assert torch.equal(val, wval)
+    live = wval < INF
+    assert torch.equal(pos[live], wpos[live])
+
+
+@pytest.mark.parametrize("k,trips", [(10, 12), (10, 20), (1, 2), (64, 66), (128, 256)])
+def test_heap_topk_kernel_matches_plain(built, k, trips):
+    qidx, kept = built
+    rng = np.random.default_rng(k + trips)
+    _, _, _, suf, slen = parse_queries(qidx.dictionary, _partials(kept, rng, 200, 100, 20))
+    tl, th = qidx.dictionary.locate_prefix(suf, slen)
+    tl = torch.cat([tl, torch.tensor([5, 1, 0], dtype=torch.int32, device="cuda")])
+    th = torch.cat([th, torch.tensor([3, 1, qidx.index.n_terms + 1], dtype=torch.int32, device="cuda")])
+    rm, idx = qidx.rmq_minimal, qidx.index
+    args = (rm.values, rm.st_pos, rm.ib, idx.offsets, idx.postings, tl, th)
+    kw = dict(k=k, trips=trips, n=rm.n, n_terms=idx.n_terms)
+    out, done = heap_ops.heap_topk(*args, **kw)
+    torch.cuda.synchronize()
+    want_out, want_done = heap_topk_ref(*args, **kw)
+    assert torch.equal(out, want_out)
+    assert torch.equal(done, want_done)
+
+
+def test_conjunctive_scan_kernel_matches_plain(built):
+    qidx, kept = built
+    rng = np.random.default_rng(7)
+    pids, plen, _, suf, slen = parse_queries(qidx.dictionary, _partials(kept, rng, 64, 0, 0))
+    tl, th = qidx.dictionary.locate_prefix(suf, slen)
+    idx = qidx.index
+    starts, ends = idx.list_bounds(pids)
+    need = torch.arange(pids.shape[1], device="cuda")[None, :] < plen[:, None]
+    starts = torch.where(need, starts, 0)
+    ends = torch.where(need, ends, 0)
+    cands = idx.postings[torch.tensor(rng.integers(0, idx.n_postings, (64, 128)),
+                                      device="cuda")]
+    cands[:, -8:] = INF
+    args = (cands, starts, ends, idx.postings, qidx.completions.fwd_terms, tl, th)
+    got = isect_ops.conjunctive_scan(*args, iters=idx.n_postings.bit_length())
+    torch.cuda.synchronize()
+    want = conjunctive_scan_ref(*args, iters=idx.n_postings.bit_length())
+    assert torch.equal(got, want)
+
+
+def test_frontend_routes_agree_on_card(built):
+    qidx, kept = built
+    rng = np.random.default_rng(11)
+    parsed = parse_queries(qidx.dictionary, _partials(kept, rng, 256))
+    pids, plen, _, suf, slen = parsed
+    counts = (heap_ops.launches, rmq_ops.launches, isect_ops.launches)
+    kernel = QACFrontend(qidx).complete(pids, plen, suf, slen)
+    per_pop = QACFrontend(qidx, heap_kernel=False).complete(pids, plen, suf, slen)
+    plain = QACFrontend(qidx, use_kernel=False).complete(pids, plen, suf, slen)
+    np.testing.assert_array_equal(kernel, plain)
+    np.testing.assert_array_equal(per_pop, plain)
+    after = (heap_ops.launches, rmq_ops.launches, isect_ops.launches)
+    assert all(a > b for a, b in zip(after, counts))
