@@ -9,19 +9,25 @@ Phases, each printing its lines before the next starts:
   3. a full-width index from the port's own builder at the widths of the
      repo's production configuration (qac-ebay: k=10, MAX_TERMS=8,
      MAX_TERM_CHARS=24, a 1M-term vocabulary, ~10M completions), from a log
-     with the distributions of ``SynthLogConfig``;
+     with the distributions of ``SynthLogConfig``, with its postings packed
+     as "ef" (the default of ``build_qac_index``) and the same lists packed once more as
+     "bitpack", each round-tripped, and their sizes;
   4. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (bit-identical); the kernel's device time per launch from
-     ``torch.profiler``, and CUDA-event times per call of the wrapper
-     (host-inclusive) and of the plain version;
+     path's shapes (bit-identical), the packed kernels for both codecs; the
+     kernel's device time per launch from ``torch.profiler``, and CUDA-event
+     times per call of the wrapper (host-inclusive) and of the plain version
+     (a few calls only for the packed plain versions, which decode with many
+     small PyTorch ops per read);
   5. the main path: parse_queries -> QACFrontend.complete on 256 sampled
-     partial queries through the kernel route, the per-pop RMQ route and the
-     plain-PyTorch route (all bit-identical), plus a per-request-k batch,
-     the answers also checked against a brute-force host search; each
-     route's kernel launch counts on the main batch, counted from 0 just
-     before its call and read just after; then one traced call of the kernel route
-     (``torch.profiler``, CUDA activity) for the device's busy share and the
-     kernels that take its time;
+     partial queries through the kernel route, the per-pop RMQ route, the
+     plain-PyTorch route and the compressed-postings routes
+     (``postings_codec="ef"`` and ``"bitpack"``), all bit-identical, plus a
+     per-request-k batch on every route but the plain one, the answers also
+     checked against a brute-force host search; each route's kernel launch
+     counts on the main batch, counted from 0 just before its call and read
+     just after; then one traced call of the kernel route and of the "ef"
+     route (``torch.profiler``, CUDA activity) for the device's busy share and
+     the kernels that take its time;
   6. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
@@ -29,6 +35,7 @@ exits non-zero; without a card it exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,17 +48,44 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INF = 2**31 - 1
 DEVICE = "cuda"
-KERNELS = {   # name -> (ops module, CUDA source, the TPU kernel it replaces,
-              #          the frontend route whose main-batch run launches it)
-    "rmq_query": ("repro_torch.kernels.rmq.ops", "src/repro_torch/csrc/rmq.cu",
-                  "src/repro/kernels/rmq/kernel.py:68", "per_pop_rmq"),
-    "heap_topk": ("repro_torch.kernels.heap_topk.ops",
+CODECS = ("ef", "bitpack")
+MAX_PACKED_READ = 12 + 8 + 32      # directory, two payload words, the EF bitmap
+KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
+              #          kernel it replaces, the frontend routes whose
+              #          main-batch runs launch it)
+    "rmq_query": ("repro_torch.kernels.rmq.ops", "launches",
+                  "src/repro_torch/csrc/rmq.cu",
+                  "src/repro/kernels/rmq/kernel.py:68", ("per_pop_rmq",)),
+    "heap_topk": ("repro_torch.kernels.heap_topk.ops", "launches",
                   "src/repro_torch/csrc/heap_topk.cu",
-                  "src/repro/kernels/heap_topk/kernel.py:186", "kernels"),
-    "conjunctive_scan": ("repro_torch.kernels.intersect.ops",
+                  "src/repro/kernels/heap_topk/kernel.py:186", ("kernels",)),
+    "conjunctive_scan": ("repro_torch.kernels.intersect.ops", "launches",
                          "src/repro_torch/csrc/intersect.cu",
-                         "src/repro/kernels/intersect/kernel.py:137", "kernels"),
+                         "src/repro/kernels/intersect/kernel.py:137", ("kernels",)),
+    "heap_topk_packed": ("repro_torch.kernels.heap_topk.ops", "packed_launches",
+                         "src/repro_torch/csrc/heap_topk.cu",
+                         "src/repro/kernels/heap_topk/kernel.py:72", CODECS),
+    "conjunctive_scan_packed": ("repro_torch.kernels.intersect.ops",
+                                "packed_launches",
+                                "src/repro_torch/csrc/intersect.cu",
+                                "src/repro/kernels/intersect/kernel.py:110", CODECS),
 }
+# the kernels each frontend route's main-batch run launches, and no others
+ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_scan"),
+                 "per_pop_rmq": ("rmq_query", "conjunctive_scan"),
+                 "plain": (),
+                 "ef": ("heap_topk_packed", "conjunctive_scan_packed"),
+                 "bitpack": ("heap_topk_packed", "conjunctive_scan_packed")}
+# the __global__ each wrapper launches, as the profiler names it
+TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
+              "heap_topk": "heap_topk_kernel<qac::RawLookup>",
+              "conjunctive_scan": "conjunctive_scan_kernel<qac::RawLookup>",
+              ("heap_topk_packed", "ef"): "heap_topk_kernel<qac::PackedLookup<true>",
+              ("heap_topk_packed", "bitpack"): "heap_topk_kernel<qac::PackedLookup<false>",
+              ("conjunctive_scan_packed", "ef"):
+                  "conjunctive_scan_kernel<qac::PackedLookup<true>",
+              ("conjunctive_scan_packed", "bitpack"):
+                  "conjunctive_scan_kernel<qac::PackedLookup<false>"}
 
 
 def say(*a):
@@ -118,12 +152,12 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
-    """Mean device ms per launch of the ``__global__`` named ``kernel`` over
-    ``reps`` calls of ``fn`` after warm-up, from ``torch.profiler``'s CUDA
-    activity (the kernel's own time, without the host's cost of the call).
-    The trace may miss a launch at the edge of its window, so the mean is
-    over the launches it holds."""
+def kernel_device_ms(torch, fn, tag: str, reps: int) -> float:
+    """Mean device ms per launch of the ``__global__`` whose traced name
+    holds ``tag`` over ``reps`` calls of ``fn`` after warm-up, from
+    ``torch.profiler``'s CUDA activity (the kernel's own time, without the
+    host's cost of the call). The trace may miss a launch at the edge of its
+    window, so the mean is over the launches it holds."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -132,11 +166,12 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if f"{kernel}(" in e.key and e.self_device_time_total > 0]
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    hits = [e for e in events if tag in e.key]
     count = sum(e.count for e in hits)
     if not reps * 0.9 <= count <= reps:
-        fail(f"the trace holds {count} launches of {kernel}, of {reps} made")
+        fail(f"the trace holds {count} launches of {tag}, of {reps} made; "
+             f"it names {[e.key[:120] for e in events]}")
     return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
@@ -153,6 +188,68 @@ def rmq_bytes(torch, n, p, q) -> int:
     per = (16 + 4 * (2 + 2 * (~same).long() + 2 * mid.long())
            + 2 * j1.long() + 2 * j2.long() + 8 * mid.long())
     return int(per.sum())
+
+
+def packed_read_bytes(torch, pk, pos):
+    """Bytes one packed lookup at each postings position needs: its block's
+    directory (base, meta, wordoff: 12 B); the payload words that hold its
+    fixed-width field (none at width 0, one when the field lies in one word,
+    else two); and on an EF block the bitmap words up to the one that holds
+    its set bit, where the select stops."""
+    from repro_torch.core.codecs import EF_BITMAP_WORDS, popcount32
+
+    pos = pos.long()
+    b, j = pos // 128, pos % 128
+    meta, off = pk.meta[b].long(), pk.wordoff[b].long()
+    wf, is_ef = meta & 63, (meta >> 6) & 1
+    payload = torch.where(wf == 0, 0, torch.where((j * wf) % 32 + wf <= 32, 4, 8))
+    at = off[..., None] + torch.arange(EF_BITMAP_WORDS, device=pos.device)
+    bitmap = pk.words[at.clamp(max=pk.words.numel() - 1)].long() & 0xFFFFFFFF
+    before = (popcount32(bitmap).cumsum(-1) <= j[..., None]).sum(-1)
+    return 12 + payload + 4 * is_ef * (before + 1).clamp(max=EF_BITMAP_WORDS)
+
+
+def heap_bytes(torch, lo, hi, out, k, offsets, minimal, postings, pk=None):
+    """Bytes heap_topk needs for these ranges: the ranges in, out and done
+    out, and a read for each docid emitted: 4 B raw; over packed postings
+    4 B when the docid heads a list of the lane's range (the RMQ over
+    ``minimal`` can give it), else one packed lookup at its cheapest
+    position in the range's postings."""
+    total = lo.numel() * (8 + 4 * k + 1)
+    live = out < INF
+    if pk is None:
+        return total + 4 * int(live.sum())
+    n = offsets.numel() - 1
+    for b in range(lo.numel()):
+        l, h = int(lo[b].clamp(0, n)), int(hi[b].clamp(0, n))
+        if l >= h:
+            continue
+        docs = out[b][live[b]]                      # ascending
+        head = torch.isin(docs, minimal[l:h])
+        rest = docs[~head]
+        s, e = int(offsets[l]), int(offsets[h])
+        pos = s + torch.nonzero(torch.isin(postings[s:e], rest))[:, 0]
+        cheapest = torch.full_like(rest, MAX_PACKED_READ, dtype=torch.long).scatter_reduce(
+            0, torch.searchsorted(rest, postings[pos]), packed_read_bytes(torch, pk, pos),
+            "amin")
+        total += 4 * int(head.sum()) + int(cheapest.sum())
+    return total
+
+
+def probe_positions(torch, postings, cands, starts, ends, iters):
+    """The insertion point of each candidate [B, T] in each [start, end)
+    span [B, P] after ``iters`` halvings -> [B, T, P]: the position whose
+    posting every probe must read to decide the hit."""
+    n = postings.numel()
+    shape = (cands.shape[0], cands.shape[1], starts.shape[1])
+    lo, hi = starts[:, None, :].expand(shape), ends[:, None, :].expand(shape)
+    c = cands[:, :, None]
+    for _ in range(iters):
+        mid = (lo + hi) // 2
+        go = postings[mid.clamp(0, n - 1)] < c
+        valid = lo < hi
+        lo, hi = torch.where(valid & go, mid + 1, lo), torch.where(valid & ~go, mid, hi)
+    return lo.clamp(0, n - 1)
 
 
 # --------------------------------------------------------------------------
@@ -203,12 +300,22 @@ def main() -> int:
 
     from repro_torch import backend
     from repro_torch.core import build_qac_index, parse_queries
+    from repro_torch.core.codecs import pack_postings, unpack_postings
     from repro_torch.kernels.heap_topk.ref import heap_topk_ref
-    from repro_torch.kernels.intersect.ref import conjunctive_scan_ref
+    from repro_torch.kernels.intersect.ref import (conjunctive_scan_packed_ref,
+                                                   conjunctive_scan_ref)
     from repro_torch.kernels.rmq.ref import rmq_window_batch
     from repro_torch.serve import QACFrontend
 
     ops = {name: importlib.import_module(v[0]) for name, v in KERNELS.items()}
+
+    def reset_counts():
+        for name, m in ops.items():
+            setattr(m, KERNELS[name][1], 0)
+
+    def read_counts():
+        return {name: getattr(m, KERNELS[name][1]) for name, m in ops.items()}
+
     dev = torch.device(DEVICE)
 
     # ---- 1. card and versions ---------------------------------------------
@@ -234,12 +341,23 @@ def main() -> int:
     queries, scores = make_log(args.queries, args.vocab, args.seed)
     t_log = time.perf_counter() - t0
     t0 = time.perf_counter()
-    qidx, kept, _ = build_qac_index(queries, scores, k_default=10, device=dev)
+    qidx, kept, _ = build_qac_index(queries, scores, k_default=10,
+                                    postings_codec="ef", device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     del queries, scores
     idx, comps, rm = qidx.index, qidx.completions, qidx.rmq_minimal
     offs_h = idx.offsets.cpu().numpy()
+    post_h = idx.postings.cpu().numpy()
+    t0 = time.perf_counter()
+    pk_bp = pack_postings(post_h, "bitpack", device=dev)
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not np.array_equal(unpack_postings(pk_bp), post_h):
+        fail("bitpack postings do not round-trip")
+    t_unpack = time.perf_counter() - t0
+    packs = {"ef": idx.packed, "bitpack": pk_bp}
+    qidx_bp = dataclasses.replace(qidx, index=dataclasses.replace(idx, packed=pk_bp))
     dev_bytes = sum(t.numel() * t.element_size() for part in
                     (qidx.dictionary, comps, idx, qidx.rmq_docids, rm)
                     for t in vars(part).values() if isinstance(t, torch.Tensor))
@@ -247,6 +365,17 @@ def main() -> int:
         f"postings, longest list {int(np.diff(offs_h).max())}, "
         f"{dev_bytes / 2**20:.1f} MiB on the card | log {t_log:.1f} s, "
         f"host build {t_build:.1f} s (queries={args.queries}, vocab={args.vocab})")
+    say(f"[index] the host build includes packing the postings as ef and its "
+        f"round-trip check; bitpack packing of the same lists {t_pack:.1f} s, "
+        f"its round trip {t_unpack:.1f} s")
+    for codec, pk in packs.items():
+        ef_blocks = int(((pk.meta >> 6) & 1).sum())
+        say(f"[index] {codec} postings on the card: {pk.words.numel() * 4 / 2**20:.1f} MiB "
+            f"of words + {pk.base.numel() * 12 / 2**20:.1f} MiB of block directory "
+            f"= {pk.nbytes() / 2**20:.1f} MiB, {pk.bits_per_int():.2f} bits per posting "
+            f"({ef_blocks} of {pk.base.numel()} blocks EF), beside the raw postings' "
+            f"{idx.n_postings * 4 / 2**20:.1f} MiB (32 bits per posting) of the "
+            f"{dev_bytes / 2**20:.1f} MiB raw index")
     if args.queries != 13_500_000 or args.vocab != 1_000_000:
         say(f"[index] CUT: {args.queries} queries, {args.vocab} vocabulary "
             "(counts only; widths unchanged)")
@@ -264,19 +393,22 @@ def main() -> int:
     # ---- 4. kernels against their plain versions ---------------------------
     results = {}
 
-    def hold(name, run_kernel, run_plain, equal, bytes_needed, reps):
+    def hold(name, run_kernel, run_plain, equal, bytes_needed, reps, case,
+             codec=None, plain_reps=None):
         """Check the kernel against its plain version; time both. Returns
         (device ms per launch, ms per wrapper call, plain ms, bound ms)."""
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         if not equal(got, want):
-            fail(f"{name}: kernel disagrees with its plain version")
-        case = {"ms": kernel_device_ms(torch, run_kernel, f"{name}_kernel", 200),
-                "call_ms": cuda_ms(torch, run_kernel, reps),
-                "plain_ms": cuda_ms(torch, run_plain, max(3, reps // 20)),
-                "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3}
-        results.setdefault(name, []).append(case)
-        return case
+            fail(f"{name} {case}: kernel disagrees with its plain version")
+        tag = TRACE_TAGS[name if codec is None else (name, codec)]
+        c = {"case": case, **({"codec": codec} if codec else {}),
+             "ms": kernel_device_ms(torch, run_kernel, tag, 200),
+             "call_ms": cuda_ms(torch, run_kernel, reps),
+             "plain_ms": cuda_ms(torch, run_plain, plain_reps or max(3, reps // 20)),
+             "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3, "bytes": bytes_needed}
+        results.setdefault(name, []).append(c)
+        return c
 
     def timing(c):
         return (f"device {c['ms']*1e3:.2f} us/launch, call {c['call_ms']*1e3:.2f} us, "
@@ -300,7 +432,7 @@ def main() -> int:
     c = hold("rmq_query",
              lambda: ops["rmq_query"].rmq_query(rm.values, rm.ib, rm.st_pos, p, q, n=n),
              lambda: rmq_window_batch(rm.values, rm.ib, rm.st_pos, p, q, n=n),
-             rmq_equal, b_rmq, 2000)
+             rmq_equal, b_rmq, 2000, "B=512")
     say(f"[kernel] rmq_query B=512: {timing(c)} ({b_rmq} B) | equal")
 
     # heap_topk: B=256 term ranges of the batch's suffixes (empty ones included)
@@ -309,16 +441,33 @@ def main() -> int:
     lo8, hi8 = hl[16:24].clone(), hh[16:24].clone()
     hl[16:24], hh[16:24] = hi8 + 3, lo8                     # inverted ranges
     targs = (rm.values, rm.st_pos, rm.ib, idx.offsets, idx.postings, hl, hh)
-    for k, trips in ((10, 12), (10, 20), (64, 66), (64, 128)):
+    heap_cases = ((10, 12), (10, 20), (64, 66), (64, 128))
+    heap_equal = lambda g, w: torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    heap_out = {}
+    for k, trips in heap_cases:
         kw = dict(k=k, trips=trips, n=n, n_terms=idx.n_terms)
-        out, _ = heap_topk_ref(*targs, **kw)
-        b_heap = hl.numel() * (8 + 4 * k + 1) + 4 * int((out < INF).sum())
+        heap_out[k, trips] = out = heap_topk_ref(*targs, **kw)[0]
+        b_heap = heap_bytes(torch, hl, hh, out, k, idx.offsets, idx.minimal,
+                            idx.postings)
+        case = f"B={hl.numel()} k={k} trips={trips}"
         c = hold("heap_topk", lambda: ops["heap_topk"].heap_topk(*targs, **kw),
-                 lambda: heap_topk_ref(*targs, **kw),
-                 lambda g, w: torch.equal(g[0], w[0]) and torch.equal(g[1], w[1]),
-                 b_heap, 200)
-        say(f"[kernel] heap_topk B={hl.numel()} k={k} trips={trips}: {timing(c)} "
-            f"({b_heap} B) | equal")
+                 lambda: heap_topk_ref(*targs, **kw), heap_equal, b_heap, 200, case)
+        say(f"[kernel] heap_topk {case}: {timing(c)} ({b_heap} B) | equal")
+    # the packed kernel on the same ranges, for both codecs; its plain version
+    # decodes with many small PyTorch ops per read, so it runs a few times only
+    for codec, pk in packs.items():
+        pargs = (rm.values, rm.st_pos, rm.ib, idx.offsets, pk, hl, hh)
+        for k, trips in heap_cases:
+            kw = dict(k=k, trips=trips, n=n, n_terms=idx.n_terms)
+            b_heap = heap_bytes(torch, hl, hh, heap_out[k, trips], k, idx.offsets,
+                                idx.minimal, idx.postings, pk)
+            case = f"B={hl.numel()} k={k} trips={trips}"
+            c = hold("heap_topk_packed",
+                     lambda: ops["heap_topk_packed"].heap_topk_packed(*pargs, **kw),
+                     lambda: heap_topk_ref(*targs, **kw, packed=pk), heap_equal,
+                     b_heap, 200, case, codec, plain_reps=3)
+            say(f"[kernel] heap_topk_packed[{codec}] {case}: {timing(c)} "
+                f"({b_heap} B) | equal")
 
     # conjunctive_scan: the first real tile of 64 multi-term queries
     multi = torch.nonzero(plen > 0)[:64, 0]
@@ -345,12 +494,25 @@ def main() -> int:
                      & (fwd_rows < th[multi][:, None, None])).any(2)
     b_scan = (cands.numel() * 5 + ks.numel() * 8 + 64 * 8 + 32 * int(live.sum())
               + 4 * int((fwd_ok[:, :, None] & (ke > ks)[:, None, :]).sum()))
+    case = f"B=64 T=128 P={mp.shape[1]} iters={iters}"
     c = hold("conjunctive_scan",
              lambda: ops["conjunctive_scan"].conjunctive_scan(*sargs, iters=iters),
              lambda: conjunctive_scan_ref(*sargs, iters=iters),
-             torch.equal, b_scan, 2000)
-    say(f"[kernel] conjunctive_scan B=64 T=128 P={mp.shape[1]} iters={iters}: "
-        f"{timing(c)} ({b_scan} B) | equal")
+             torch.equal, b_scan, 2000, case)
+    say(f"[kernel] conjunctive_scan {case}: {timing(c)} ({b_scan} B) | equal")
+    probed = fwd_ok[:, :, None] & (ke > ks)[:, None, :]            # [64, T, P]
+    at = probe_positions(torch, idx.postings, cands, ks, ke, iters)
+    for codec, pk in packs.items():
+        pargs = (cands, ks, ke, pk, comps.fwd_terms, tl[multi], th[multi])
+        b_scan = (cands.numel() * 5 + ks.numel() * 8 + 64 * 8 + 32 * int(live.sum())
+                  + int((probed * packed_read_bytes(torch, pk, at)).sum()))
+        c = hold("conjunctive_scan_packed",
+                 lambda: ops["conjunctive_scan_packed"].conjunctive_scan_packed(
+                     *pargs, iters=iters),
+                 lambda: conjunctive_scan_packed_ref(*pargs, iters=iters),
+                 torch.equal, b_scan, 2000, case, codec, plain_reps=10)
+        say(f"[kernel] conjunctive_scan_packed[{codec}] {case}: {timing(c)} "
+            f"({b_scan} B) | equal")
 
     # ---- 5. the main path ---------------------------------------------------
     # the per-request-k batch: the first 64 queries, each with its own k. The
@@ -360,7 +522,9 @@ def main() -> int:
     kmix = np.random.default_rng(1).choice([10, 10, 10, 3, 128], 64)
     kinputs = tuple(x[:64] for x in (pids, plen, suf, slen))
     fes = {"kernels": QACFrontend(qidx), "per_pop_rmq": QACFrontend(qidx, heap_kernel=False),
-           "plain": QACFrontend(qidx, use_kernel=False)}
+           "plain": QACFrontend(qidx, use_kernel=False),
+           "ef": QACFrontend(qidx, postings_codec="ef"),
+           "bitpack": QACFrontend(qidx_bp, postings_codec="bitpack")}
     inputs = (pids, plen, suf, slen)
     answers, per_k, per_query_us, counted = {}, {}, {}, {}
     # phase 4 loaded every kernel and warmed PyTorch's own ones, so each
@@ -368,13 +532,12 @@ def main() -> int:
     # counted on its own: the counts go to 0 just before it, are read just
     # after, and the per-request-k batch that follows is not counted
     for route, fe in fes.items():
-        for m in ops.values():
-            m.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         answers[route] = fe.complete(*inputs)
         per_query_us[route] = (time.perf_counter() - t0) / args.batch * 1e6
-        counted[route] = {name: m.launches for name, m in ops.items()}
+        counted[route] = read_counts()
         t_k = ""
         if route != "plain":
             t0 = time.perf_counter()
@@ -384,23 +547,25 @@ def main() -> int:
             f"multi={fe.describe_route('multi')} | {per_query_us[route]:.1f} us/query "
             f"at B={args.batch} on {smi}{t_k} | stats {fe.stats} | launches on the "
             f"main batch {counted[route]}")
-    if any(counted["plain"].values()):
-        fail(f"the plain route launched kernels: {counted['plain']}")
-    if counted["kernels"]["rmq_query"] or counted["per_pop_rmq"]["heap_topk"]:
-        fail(f"a kernel route launched the other route's kernel: {counted}")
-    launches = {name: counted[v[3]][name] for name, v in KERNELS.items()}
-    say(f"[path] kernel launches on the main batch, each from its route's run: {launches}")
-    for name, c in launches.items():
-        if c == 0:
-            fail(f"kernel {name} never launched on the main path")
+    for route, counts in counted.items():
+        for name, c in counts.items():
+            if bool(c) != (name in ROUTE_KERNELS[route]):
+                fail(f"route {route} launched {name} {c} times: it launches exactly "
+                     f"{ROUTE_KERNELS[route]} ({counts})")
+    launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
+    say(f"[path] kernel launches on the main batch, each from its routes' runs: {launches}")
     a, a_k = answers["kernels"], per_k["kernels"]
     if a.shape != (args.batch, 10) or a.dtype != np.int32 or a_k.shape != (64, int(kmix.max())):
         fail(f"unexpected answer shapes {a.shape} {a.dtype} {a_k.shape}")
     for route in ("kernels", "per_pop_rmq"):
         if not np.array_equal(answers[route], answers["plain"]):
             fail(f"route {route} disagrees with the plain route")
-    if not np.array_equal(per_k["per_pop_rmq"], a_k):
-        fail("per-request-k answers differ between the kernel routes")
+    for route in ("ef", "bitpack"):
+        if not np.array_equal(answers[route], a):
+            fail(f"route {route} disagrees with the raw kernel route")
+    for route in ("per_pop_rmq", "ef", "bitpack"):
+        if not np.array_equal(per_k[route], a_k):
+            fail(f"per-request-k answers of route {route} differ from the kernel route's")
     for i, ki in enumerate(kmix):
         w = min(int(ki), 10)
         if not np.array_equal(a_k[i, :w], answers["plain"][i, :w]) or (a_k[i, ki:] != INF).any():
@@ -417,32 +582,35 @@ def main() -> int:
         want = brute_force(host, int(plen_h[i]), pids_h[i], int(tl_h[i]), int(th_h[i]), ki, cap)
         if not np.array_equal(got, want):
             fail(f"query {partials[i]!r} k={ki}: {got} != brute force {want}")
-    say(f"[path] three routes bit-identical on {args.batch} queries; a per-request-k "
-        f"batch of 64 (k up to {int(kmix.max())}) equal on both kernel routes and "
-        f"prefix-equal to the plain route; {len(checks)} answers equal a brute-force "
-        "host search")
+    say(f"[path] {len(fes)} routes bit-identical on {args.batch} queries (the packed "
+        f"ones held against the raw kernel route); a per-request-k batch of 64 (k up "
+        f"to {int(kmix.max())}) equal on the four kernel routes and prefix-equal to "
+        f"the plain route; {len(checks)} answers equal a brute-force host search")
 
-    # where the kernel route's time goes: one traced call of the same batch
+    # where the time goes: one traced call of the same batch per route
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fes["kernels"].complete(*inputs)
-    dev = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-                  if e.self_device_time_total > 0), reverse=True)
-    busy_us = sum(d for d, _, _ in dev)
-    wall_us = per_query_us["kernels"] * args.batch
-    share = f"{busy_us / wall_us:.4f}" if busy_us else "not measured"
-    say(f"[trace] kernel route B={args.batch}: device busy {busy_us / 1e3:.2f} ms of "
-        f"{wall_us / 1e3:.2f} ms untraced wall, busy share {share} on {smi}")
-    for d, key, count in dev[:6]:
-        say(f"[trace]   {d / 1e3:9.2f} ms  {count:7d} x  {key[:90]}")
+    for route in ("kernels", "ef"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fes[route].complete(*inputs)
+        dev = sorted(((e.self_device_time_total, e.key, e.count)
+                      for e in prof.key_averages() if e.self_device_time_total > 0),
+                     reverse=True)
+        busy_us = sum(d for d, _, _ in dev)
+        wall_us = per_query_us[route] * args.batch
+        share = f"{busy_us / wall_us:.4f}" if busy_us else "not measured"
+        say(f"[trace] {route} route B={args.batch}: device busy {busy_us / 1e3:.2f} ms "
+            f"of {wall_us / 1e3:.2f} ms untraced wall, busy share {share} on {smi}")
+        for d, key, count in dev[:6]:
+            say(f"[trace]   {d / 1e3:9.2f} ms  {count:7d} x  {key[:90]}")
 
     # ---- 6. kernels line ----------------------------------------------------
     line = []
-    for name, (_, src, replaces, route) in KERNELS.items():
-        first = results[name][0]
+    for name, (_, _, src, replaces, routes) in KERNELS.items():
+        first = {key: v for key, v in results[name][0].items() if key != "case"}
         line.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "launches_from": route,
+                     "launches": launches[name],
+                     "launches_by_route": {r: counted[r][name] for r in routes},
                      "max_abs_err": 0, **first, "bound_by": "bytes",
                      "library_ms": None, "equal": True, "cases": results[name]})
     say(json.dumps({"kernels": line, "card": card, "power": smi}))

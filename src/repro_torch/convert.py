@@ -6,7 +6,10 @@ package's ``QACIndex`` on ``device``. It is how the engines
 are held against the JAX package on identical arrays, independently of the
 builder. Keys are ``"<component>.<field>"`` for arrays and meta alike, e.g.
 ``"rmq_minimal.values"`` and ``"rmq_minimal.levels"``; meta also holds
-``"k_default"``.
+``"k_default"``. Compressed postings go one level deeper:
+``"index.packed.words"`` (and ``.base``, ``.meta``, ``.wordoff``) among the
+arrays, ``"index.packed.n_post"`` and ``"index.packed.codec"`` (a string)
+among the meta; an index given none of them gets ``packed=None``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from .backend import resolve_device
 from .core.builder import QACIndex
+from .core.codecs import PackedPostings
 from .core.completions import Completions
 from .core.dictionary import TermDictionary
 from .core.inverted_index import InvertedIndex
@@ -30,22 +34,30 @@ COMPONENTS = {"dictionary": TermDictionary, "completions": Completions,
 def qac_index_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
                           device=None) -> QACIndex:
     """Build a ``QACIndex`` on ``device`` (default: the card) from numpy
-    arrays and integer meta fields; every field must be given exactly once."""
+    arrays and meta fields (integers, and the packed codec's name); every
+    field must be given exactly once."""
     device = resolve_device(device)
     used = set()
-    parts = {}
-    for comp, cls in COMPONENTS.items():
+
+    def fields_of(cls, prefix):
         fields = {}
         for f in dataclasses.fields(cls):
-            key = f"{comp}.{f.name}"
+            key = f"{prefix}.{f.name}"
+            if cls is InvertedIndex and f.name == "packed":
+                if any(k.startswith(key + ".") for k in (*arrays, *meta)):
+                    fields[f.name] = PackedPostings(**fields_of(PackedPostings, key))
+                continue
             if key in arrays:
                 fields[f.name] = torch.tensor(np.ascontiguousarray(arrays[key]), device=device)
             elif key in meta:
-                fields[f.name] = int(meta[key])
+                v = meta[key]
+                fields[f.name] = v if isinstance(v, str) else int(v)
             else:
                 raise KeyError(f"missing index field {key!r}")
             used.add(key)
-        parts[comp] = cls(**fields)
+        return fields
+
+    parts = {comp: cls(**fields_of(cls, comp)) for comp, cls in COMPONENTS.items()}
     extra = (set(arrays) | set(meta)) - used - {"k_default"}
     if extra:
         raise KeyError(f"unknown index fields {sorted(extra)}")

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..backend import resolve_device
+from .codecs import CODECS
 from .types import MAX_TERMS, MAX_TERM_CHARS
 from .dictionary import TermDictionary
 from .completions import Completions
@@ -69,20 +70,17 @@ def build_qac_index(queries: Sequence[str], scores: Sequence[float],
                     k_default: int = 10,
                     max_terms: int = MAX_TERMS,
                     max_term_chars: int = MAX_TERM_CHARS,
-                    postings_codec: str | None = None,
+                    postings_codec: str | None = "ef",
                     device=None):
     """Full pipeline: scored log -> (QACIndex, kept strings, scores).
 
     ``device`` defaults to the card (see ``backend.resolve_device``).
-    Postings are raw CSR only: the compressed layouts ("ef", "bitpack") of
-    the JAX package come with the port's packed slice and raise
-    ``NotImplementedError`` until then.
+    ``postings_codec`` ("ef" default, "bitpack", or None) also emits the
+    compressed postings layout beside raw CSR (``InvertedIndex.build``);
+    the engines decode it only when the caller names a codec
+    (``core.search``).
     """
-    if postings_codec in ("ef", "bitpack"):
-        raise NotImplementedError(
-            f"postings_codec={postings_codec!r}: compressed postings are not "
-            "ported yet; build with postings_codec=None")
-    if postings_codec is not None:
+    if postings_codec is not None and postings_codec not in CODECS:
         raise ValueError(f"unknown postings_codec {postings_codec!r}")
     device = resolve_device(device)
     dictionary, rows, sc, kept = build_corpus(
@@ -94,7 +92,8 @@ def build_qac_index(queries: Sequence[str], scores: Sequence[float],
     )
     d_of_row = np.empty(len(rows), dtype=np.int32)
     d_of_row[order] = np.arange(len(rows), dtype=np.int32)
-    inv = InvertedIndex.build(rows, d_of_row, dictionary.n_terms, device=device)
+    inv = InvertedIndex.build(rows, d_of_row, dictionary.n_terms,
+                              postings_codec, device=device)
     qidx = QACIndex(
         dictionary=dictionary,
         completions=comps,

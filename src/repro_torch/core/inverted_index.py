@@ -2,8 +2,11 @@
 
 Lists are docid-ascending == score-descending, so "first k" == "top-k". The
 ``minimal`` array (first docid of every list) feeds the single-term RMQ
-engine (paper §3.3). Only raw CSR postings exist in this port so far; the
-compressed device layout of the JAX package comes with the packed slice.
+engine (paper §3.3). ``packed`` optionally carries the same postings in the
+compressed device layout (``core/codecs.py``); ``build`` asserts the
+round trip ``unpack_postings(packed) == postings``. The raw postings stay on
+the device beside it: the multi-term engine reads its candidates (the
+shortest prefix list) from them on every route.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .codecs import PackedPostings, pack_postings, unpack_postings
 from .types import INF_DOCID
 from .rmq import RangeMin
 
@@ -23,11 +27,17 @@ class InvertedIndex:
     minimal: torch.Tensor    # int32[V+2] first docid per list (INF if empty)
     n_terms: int
     n_postings: int
+    packed: PackedPostings | None = None   # compressed device layout
 
     @staticmethod
     def build(term_rows: np.ndarray, docid_of_row: np.ndarray, n_terms: int,
-              *, device: torch.device) -> "InvertedIndex":
-        """term_rows int32[N, M] (1-based ids, 0 pad); docid_of_row int32[N]."""
+              postings_codec: str | None = "ef", *,
+              device: torch.device) -> "InvertedIndex":
+        """term_rows int32[N, M] (1-based ids, 0 pad); docid_of_row int32[N].
+
+        ``postings_codec``: "ef" (default) or "bitpack" also packs the
+        lists into ``.packed``; None skips it.
+        """
         term_rows = np.asarray(term_rows, dtype=np.int64)
         n, m = term_rows.shape
         docs = np.broadcast_to(np.asarray(docid_of_row, dtype=np.int64)[:, None], (n, m))
@@ -50,10 +60,16 @@ class InvertedIndex:
         ends = offsets[1:]
         nonempty = ends > starts
         minimal[:-1][nonempty] = d[starts[nonempty]]
+        packed = None
+        if postings_codec is not None:
+            packed = pack_postings(d.astype(np.int32), postings_codec,
+                                   device=device)
+            got = unpack_postings(packed)
+            assert (got == d).all(), "packed postings round-trip broke"
         to = lambda a: torch.from_numpy(a).to(device)
         return InvertedIndex(postings=to(d.astype(np.int32)), offsets=to(offsets),
                              minimal=to(minimal), n_terms=n_terms,
-                             n_postings=len(d))
+                             n_postings=len(d), packed=packed)
 
     def list_bounds(self, term_id: torch.Tensor):
         t = term_id.clamp(0, self.n_terms)

@@ -16,6 +16,16 @@ runs the plain PyTorch versions on whatever device the index is on. Routing
 never changes answers. The index lives in device memory, so no route is
 gated on its size; a routing rule measured on the card is still to come.
 
+``postings_codec`` picks the postings both engines read: None, "auto" and
+"raw" read raw CSR; "ef" and "bitpack" pin the index's compressed postings
+(``index.packed``, which must exist with that codec), decoded per read by
+the packed kernels or their plain versions. The per-pop RMQ route and the
+multi-term candidates (the shortest prefix list) read raw CSR on every
+codec, as in the JAX package. The JAX package's "auto" also falls back to
+the compressed layout when only it fits the TPU's VMEM
+(``heap_kernel_max_bytes``, ``_heap_kernel_fits``); on the card the index
+sits in device memory, so that gate is not ported and "auto" means raw.
+
 Results are docids, ascending == best-score-first; INF_DOCID pads.
 """
 from __future__ import annotations
@@ -29,24 +39,34 @@ from .rmq import RangeMin
 INT32_MAX = 2**31 - 1
 
 
-def check_postings_codec(postings_codec: str | None) -> None:
-    """Only raw CSR postings are ported so far."""
+def _resolve_packed(index: InvertedIndex, postings_codec: str | None):
+    """The ``PackedPostings`` an explicit codec asks for, else None."""
     if postings_codec in (None, "auto", "raw"):
-        return
-    if postings_codec in ("ef", "bitpack"):
-        raise NotImplementedError(
-            f"postings_codec={postings_codec!r}: compressed postings are not "
-            "ported yet")
-    raise ValueError(f"unknown postings_codec {postings_codec!r}")
+        return None
+    packed = index.packed
+    if packed is None:
+        raise ValueError(
+            f"postings_codec={postings_codec!r} but the index has no packed "
+            f"postings (build it with postings_codec={postings_codec!r})")
+    if packed.codec != postings_codec:
+        raise ValueError(
+            f"postings_codec={postings_codec!r} but the index was packed as "
+            f"{packed.codec!r}")
+    return packed
 
 
 def describe_single_route(*, use_kernel: bool,
-                          heap_kernel: bool | None = None) -> str:
+                          heap_kernel: bool | None = None,
+                          postings_codec: str | None = None) -> str:
     """The route ``single_term_topk_bounded_batch`` takes for these knobs:
-    ``"heap_topk[raw]"``, ``"per_pop_rmq[kernel]"`` or ``"torch_ref"``."""
+    ``"heap_topk[raw]"``, ``"heap_topk[ef]"``, ``"heap_topk[bitpack]"``,
+    ``"per_pop_rmq[kernel]"`` or ``"torch_ref"``."""
     if not use_kernel:
         return "torch_ref"
-    return "per_pop_rmq[kernel]" if heap_kernel is False else "heap_topk[raw]"
+    if heap_kernel is False:
+        return "per_pop_rmq[kernel]"
+    explicit = postings_codec not in (None, "auto", "raw")
+    return f"heap_topk[{postings_codec if explicit else 'raw'}]"
 
 
 def single_term_topk_bounded_batch(index: InvertedIndex, rmq_minimal: RangeMin,
@@ -60,23 +80,26 @@ def single_term_topk_bounded_batch(index: InvertedIndex, rmq_minimal: RangeMin,
     equals the full 2k-trip engine's; a full 2k budget is the exact engine
     and never signals a fallback.
     """
-    from ..kernels.heap_topk.ops import heap_topk
+    from ..kernels.heap_topk.ops import heap_topk, heap_topk_packed
     from ..kernels.heap_topk.ref import heap_topk_ref
 
-    check_postings_codec(postings_codec)
+    packed = _resolve_packed(index, postings_codec)
     trips = min(trips, 2 * k)
     bad = term_lo >= term_hi
-    args = (rmq_minimal.values, rmq_minimal.st_pos, rmq_minimal.ib,
-            index.offsets, index.postings, term_lo, term_hi)
+    rm = (rmq_minimal.values, rmq_minimal.st_pos, rmq_minimal.ib, index.offsets)
+    args = (*rm, index.postings, term_lo, term_hi)
     kw = dict(k=k, trips=trips, n=rmq_minimal.n, n_terms=index.n_terms)
-    route = describe_single_route(use_kernel=use_kernel, heap_kernel=heap_kernel)
+    route = describe_single_route(use_kernel=use_kernel, heap_kernel=heap_kernel,
+                                  postings_codec=postings_codec)
     if route == "heap_topk[raw]":
         out, done = heap_topk(*args, **kw)
+    elif route.startswith("heap_topk["):
+        out, done = heap_topk_packed(*rm, packed, term_lo, term_hi, **kw)
     elif route == "per_pop_rmq[kernel]":
         out, done = heap_topk_ref(*args, **kw, rmq_fn=lambda p, q:
                                   rmq_minimal.query_batch(p, q, use_kernel=True))
     else:
-        out, done = heap_topk_ref(*args, **kw)
+        out, done = heap_topk_ref(*args, **kw, packed=packed)
     done = bad | done | (trips >= 2 * k)
     return torch.where(bad[:, None], INF_DOCID, out), done
 
@@ -103,18 +126,25 @@ def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
     The shortest prefix list drives: each step takes one ``tile``-wide chunk
     of it for every lane and probes the other lists' ``[start, end)`` spans
     in ``postings`` with ``conjunctive_scan`` (the CUDA kernel with
-    ``use_kernel``, else its plain version). An empty list that a lane needs
+    ``use_kernel``, else its plain version; ``conjunctive_scan_packed``
+    over ``index.packed`` under an explicit ``postings_codec``, while the
+    candidates still come from the raw postings). An empty list that a lane needs
     kills the lane. Per-lane progress is masked: a finished lane stops
     advancing while others continue. The loop runs while any lane is active,
     a host sync per tile. ``probe_iters`` caps the binary-search depth
     (callers that know the longest probed list pass its bound); 0 uses
     ``log2(n_postings) + 1``.
     """
-    from ..kernels.intersect.ops import conjunctive_scan
-    from ..kernels.intersect.ref import conjunctive_scan_ref
+    from ..kernels.intersect import ops, ref
 
-    check_postings_codec(postings_codec)
-    scan = conjunctive_scan if use_kernel else conjunctive_scan_ref
+    packed = _resolve_packed(index, postings_codec)
+    if packed is None:
+        scan = ops.conjunctive_scan if use_kernel else ref.conjunctive_scan_ref
+        probed = index.postings
+    else:
+        scan = (ops.conjunctive_scan_packed if use_kernel
+                else ref.conjunctive_scan_packed_ref)
+        probed = packed
     dev = prefix_ids.device
     B, PMAX = prefix_ids.shape
     rows = torch.arange(B, device=dev)
@@ -145,7 +175,7 @@ def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
         in_list = (base[:, None] + lane[None, :]) < d_end[:, None]
         cand = index.postings[(base[:, None] + lane[None, :]).clamp(max=n_post - 1)]
         mask = scan(torch.where(in_list, cand, INF_DOCID), k_starts, k_ends,
-                    index.postings, completions.fwd_terms, term_lo, term_hi,
+                    probed, completions.fwd_terms, term_lo, term_hi,
                     iters=iters)
         hits = mask & in_list & ~lane_dead[:, None] & active[:, None]
         # first-k compaction in docid order (per lane); column k is the sink

@@ -2,10 +2,16 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel kernels/heap_topk/kernel.py::_kernel /
-// heap_topk_kernel (JAX package, raw-postings variant), which kept the five
-// dense-slot heap arrays of a 128-lane tile in VMEM scratch and pinned the
-// whole index (RMQ tables, offsets, postings) in VMEM. On Hopper the index
-// stays in device memory and L2; only the heap state is on chip.
+// heap_topk_kernel (JAX package), both its variants: raw postings, and
+// packed postings (packed_ef not None, decoded in kernel by
+// codecs.packed_lookup). The TPU kernel kept the five dense-slot heap arrays
+// of a 128-lane tile in VMEM scratch and pinned the whole index (RMQ tables,
+// offsets, raw or packed postings) in VMEM. On Hopper the index stays in
+// device memory and L2; only the heap state is on chip. The one __global__
+// is templated on its postings lookup: qac::RawLookup, or
+// qac::PackedLookup<true> (an "ef" index) / <false> (a "bitpack" index).
+// heap_topk_launch takes raw postings; heap_topk_packed_launch takes the
+// packed ones and picks the instantiation from its `ef` flag.
 //
 // One thread per query lane. Its slots (kind/lo/hi/pos/val, cap = 2*trips+1
 // each) live in dynamic shared memory laid out [5][cap][lanes], so a warp's
@@ -28,7 +34,9 @@
 // Bound: dependent gathers. A lane that emits k docids reads on the order of
 // k pops x (2 RMQs of < 64 bytes + 3 offsets + 1 posting), a few KB, from a
 // ~1 GB index: latency-bound, not bandwidth-bound, at any batch the frontend
-// forms. The design keeps the whole loop in one launch with the heap on chip
+// forms. A packed lookup is a chain of dependent reads in place of one: the
+// block's directory (12 B), two payload words (8 B) and, on an EF block, up
+// to 8 bitmap words (32 B). The design keeps the whole loop in one launch with the heap on chip
 // (no per-pop launches or device-memory round trips of the heap state).
 #include "qac_common.cuh"
 
@@ -36,9 +44,10 @@ namespace {
 
 constexpr int kSmemBudget = 200 * 1024;  // of the 227 KB a block may use
 
+template <class Lookup>
 __global__ void heap_topk_kernel(qac::RmqTables t, const int* __restrict__ offsets,
-                                 const int* __restrict__ postings, int n_post,
-                                 int n_terms, const int* __restrict__ term_lo,
+                                 Lookup lookup, int n_terms,
+                                 const int* __restrict__ term_lo,
                                  const int* __restrict__ term_hi,
                                  int* __restrict__ out,
                                  unsigned char* __restrict__ done, int B, int k,
@@ -87,8 +96,7 @@ __global__ void heap_topk_kernel(qac::RmqTables t, const int* __restrict__ offse
       if (tstar + 1 <= hi) qac::rmq_window(t, tstar + 1, hi, rpos, rval);
       const int ct = min(max(tstar, 0), n_terms);
       const int it_ptr = offsets[ct] + 1;
-      const int it_val = it_ptr < offsets[ct + 1]
-                             ? qac::raw_lookup(postings, n_post, it_ptr) : QAC_INF;
+      const int it_val = it_ptr < offsets[ct + 1] ? lookup(it_ptr) : QAC_INF;
       hi_a[best * L] = tstar - 1;
       pos_a[best * L] = lpos;
       val_a[best * L] = lval;
@@ -107,8 +115,7 @@ __global__ void heap_topk_kernel(qac::RmqTables t, const int* __restrict__ offse
       const int cl = min(max(lo, 0), n_terms);
       const int adv_ptr = tstar + 1;
       pos_a[best * L] = adv_ptr;
-      val_a[best * L] = adv_ptr < offsets[cl + 1]
-                            ? qac::raw_lookup(postings, n_post, adv_ptr) : QAC_INF;
+      val_a[best * L] = adv_ptr < offsets[cl + 1] ? lookup(adv_ptr) : QAC_INF;
       val_a[nf * L] = QAC_INF;
       val_a[(nf + 1) * L] = QAC_INF;
     }
@@ -119,6 +126,26 @@ __global__ void heap_topk_kernel(qac::RmqTables t, const int* __restrict__ offse
   done[b] = (n_out >= k) || (mn == QAC_INF);
 }
 
+template <class Lookup>
+int launch(const qac::RmqTables& t, const int* offsets, Lookup lookup,
+           int n_terms, const int* term_lo, const int* term_hi, int* out,
+           unsigned char* done, int B, int k, int trips, void* stream) {
+  const size_t lane_bytes = 5 * sizeof(int) * (size_t)(2 * trips + 1);
+  int lanes = static_cast<int>(kSmemBudget / lane_bytes);
+  lanes = lanes >= 32 ? 32 : (lanes < 1 ? 1 : lanes);
+  const size_t smem = lane_bytes * lanes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        heap_topk_kernel<Lookup>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  heap_topk_kernel<Lookup><<<(B + lanes - 1) / lanes, lanes, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      t, offsets, lookup, n_terms, term_lo, term_hi, out, done, B, k, trips);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" __attribute__((visibility("default"))) int heap_topk_launch(
@@ -127,19 +154,21 @@ extern "C" __attribute__((visibility("default"))) int heap_topk_launch(
     int n_post, int n_terms, const int* term_lo, const int* term_hi, int* out,
     unsigned char* done, int B, int k, int trips, void* stream) {
   const qac::RmqTables t{values, ib, st_pos, n, n_pad, levels, n_blocks};
-  const size_t lane_bytes = 5 * sizeof(int) * (size_t)(2 * trips + 1);
-  int lanes = static_cast<int>(kSmemBudget / lane_bytes);
-  lanes = lanes >= 32 ? 32 : (lanes < 1 ? 1 : lanes);
-  const size_t smem = lane_bytes * lanes;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        heap_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  heap_topk_kernel<<<(B + lanes - 1) / lanes, lanes, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      t, offsets, postings, n_post, n_terms, term_lo, term_hi, out, done, B, k,
-      trips);
-  return static_cast<int>(cudaGetLastError());
+  return launch(t, offsets, qac::RawLookup{postings, n_post}, n_terms, term_lo,
+                term_hi, out, done, B, k, trips, stream);
+}
+
+extern "C" __attribute__((visibility("default"))) int heap_topk_packed_launch(
+    const int* values, const int8_t* ib, const int* st_pos, int n, int n_pad,
+    int levels, int n_blocks, const int* offsets, const int* words,
+    const int* base, const int* meta, const int* wordoff, int W, int n_post,
+    int ef, int n_terms, const int* term_lo, const int* term_hi, int* out,
+    unsigned char* done, int B, int k, int trips, void* stream) {
+  const qac::RmqTables t{values, ib, st_pos, n, n_pad, levels, n_blocks};
+  const qac::PackedView v{words, base, meta, wordoff, W, n_post};
+  if (ef)
+    return launch(t, offsets, qac::PackedLookup<true>{v}, n_terms, term_lo,
+                  term_hi, out, done, B, k, trips, stream);
+  return launch(t, offsets, qac::PackedLookup<false>{v}, n_terms, term_lo,
+                term_hi, out, done, B, k, trips, stream);
 }

@@ -7,8 +7,13 @@
 //    its left window on ties, then (c1, c2), then (c3, c4), and the middle
 //    wins only when strictly smaller. That is not "leftmost overall".
 //  * qac::raw_lookup — the raw postings lookup postings[min(ptr, n_post-1)].
+//  * qac::packed_lookup<kEf> — the same lookup decoded from the compressed
+//    postings (the JAX package's core/codecs.py::packed_lookup), in uint32_t
+//    so that every shift is logical; kEf=false never reads the EF bitmap.
+//  * qac::RawLookup / qac::PackedLookup<kEf> — the two as functors, the
+//    template argument of the kernels that read postings.
 //
-// Both read straight from device memory; the caller passes tables by pointer.
+// All read straight from device memory; the caller passes tables by pointer.
 #pragma once
 
 #include <cstdint>
@@ -100,6 +105,93 @@ __device__ __forceinline__ int raw_lookup(const int* __restrict__ postings,
                                           int n_post, int ptr) {
   return postings[min(ptr, n_post - 1)];
 }
+
+constexpr int kPackBlock = 128;      // postings per block (core/codecs.py)
+constexpr int kEfBitmapWords = 8;    // 256-bit EF upper-bits bitmap
+constexpr int kMetaEfBit = 6;        // meta = width | (is_ef << kMetaEfBit)
+
+// The PackedPostings arrays: words int32[W] payload stream; base, meta and
+// wordoff int32[NB], the block directory. W >= 1 and NB >= 1 always.
+struct PackedView {
+  const int* __restrict__ words;
+  const int* __restrict__ base;
+  const int* __restrict__ meta;
+  const int* __restrict__ wordoff;
+  int W, n_post;
+};
+
+// postings[min(max(ptr, 0), n_post-1)] decoded from the packed stream. Every
+// read is clamped as in the JAX package: the pointer to [0, max(n_post-1, 0)]
+// (an empty index reads block 0 and the caller masks the result), both
+// payload words and each bitmap word to W-1. Both shift-by-32 guards are
+// kept: a field at bit offset 0 takes no straddle word, a width of 0 gives a
+// mask of 0. An EF block selects the j-th set bit of its bitmap with __popc
+// over the words and the 5-step binary strip inside the word; a bitpack
+// block of an EF index skips the select (the JAX version computes it and
+// throws it away).
+template <bool kEf>
+__device__ __forceinline__ int packed_lookup(const PackedView& v, int ptr) {
+  const int p = min(max(ptr, 0), max(v.n_post - 1, 0));
+  const int b = p / kPackBlock;
+  const uint32_t j = static_cast<uint32_t>(p % kPackBlock);
+  const uint32_t bb = static_cast<uint32_t>(v.base[b]);
+  const uint32_t mm = static_cast<uint32_t>(v.meta[b]);
+  const int off = v.wordoff[b];
+  const uint32_t wf = mm & ((1u << kMetaEfBit) - 1u);
+  const uint32_t is_ef = (mm >> kMetaEfBit) & 1u;
+  // fixed-width field j of the low/bitpack payload
+  const uint32_t bit = j * wf;
+  const int wi = off + static_cast<int>(is_ef << 3) + static_cast<int>(bit >> 5);
+  const uint32_t bo = bit & 31u;
+  const uint32_t w0 = static_cast<uint32_t>(v.words[min(wi, v.W - 1)]);
+  const uint32_t w1 = static_cast<uint32_t>(v.words[min(wi + 1, v.W - 1)]);
+  const uint32_t straddle = bo == 0 ? 0u : w1 << ((32u - bo) & 31u);
+  const uint32_t mask = wf == 0 ? 0u : 0xFFFFFFFFu >> (32u - min(wf, 32u));
+  const uint32_t low = ((w0 >> bo) | straddle) & mask;
+  if (!kEf || !is_ef) return static_cast<int>(bb + low);
+  // EF upper bits: the word that holds the j-th set bit, then its position
+  uint32_t r = j, sel_word = 0, sel_base = 0;
+  for (int t = 0; t < kEfBitmapWords; ++t) {
+    const uint32_t wt = static_cast<uint32_t>(v.words[min(off + t, v.W - 1)]);
+    const uint32_t c = __popc(wt);
+    if (r < c) {
+      sel_word = wt;
+      sel_base = static_cast<uint32_t>(t) << 5;
+      break;
+    }
+    r -= c;
+  }
+  uint32_t pos = 0, cur = sel_word;
+  for (uint32_t s = 16; s >= 1; s >>= 1) {
+    const uint32_t part = cur & ((1u << s) - 1u);
+    const uint32_t c = __popc(part);
+    if (c <= r) {
+      r -= c;
+      pos += s;
+      cur >>= s;
+    } else {
+      cur = part;
+    }
+  }
+  const uint32_t high = sel_base + pos - j;
+  return static_cast<int>(bb + ((high << wf) | low));
+}
+
+struct RawLookup {
+  const int* __restrict__ postings;
+  int n_post;
+  __device__ __forceinline__ int operator()(int ptr) const {
+    return raw_lookup(postings, n_post, ptr);
+  }
+};
+
+template <bool kEf>
+struct PackedLookup {
+  PackedView v;
+  __device__ __forceinline__ int operator()(int ptr) const {
+    return packed_lookup<kEf>(v, ptr);
+  }
+};
 
 }  // namespace qac
 

@@ -1,8 +1,11 @@
 """``heap_topk``: the whole bounded-trip single-term engine in one launch.
 
-On CUDA tensors it launches ``csrc/heap_topk.cu``; on CPU tensors it runs
+Two wrappers: ``heap_topk`` reads raw postings, ``heap_topk_packed``
+decodes a ``PackedPostings`` (the kernel instantiated for its codec). On
+CUDA tensors each launches ``csrc/heap_topk.cu``; on CPU tensors each runs
 the plain version ``ref.heap_topk_ref``. Same contract either way:
-(out int32[B, k], done bool[B]). ``launches`` counts kernel launches only.
+(out int32[B, k], done bool[B]). ``launches`` and ``packed_launches``
+count kernel launches only.
 """
 from __future__ import annotations
 
@@ -14,10 +17,28 @@ from ... import backend
 from .ref import heap_topk_ref
 
 launches = 0
+packed_launches = 0
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PACKED_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _check(values, st_pos, ib, offsets, term_lo, term_hi, k, trips, **more):
+    """Validate what the kernel takes; returns int32 contiguous term ranges."""
+    term_lo = term_lo.to(torch.int32).contiguous()
+    term_hi = term_hi.to(torch.int32).contiguous()
+    backend.require_cuda_int32("heap_topk", values=values, st_pos=st_pos,
+                               offsets=offsets, term_lo=term_lo,
+                               term_hi=term_hi, **more)
+    if ib.dtype != torch.int8 or not ib.is_contiguous() or ib.device != values.device:
+        raise ValueError("heap_topk: ib must be a contiguous int8 tensor on the card")
+    if k < 1 or trips < 0:
+        raise ValueError(f"heap_topk: needs k >= 1 and trips >= 0, got {k}, {trips}")
+    return term_lo, term_hi
 
 
 def heap_topk(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
@@ -29,15 +50,8 @@ def heap_topk(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
     if not values.is_cuda:
         return heap_topk_ref(values, st_pos, ib, offsets, postings, term_lo,
                              term_hi, k=k, trips=trips, n=n, n_terms=n_terms)
-    term_lo = term_lo.to(torch.int32).contiguous()
-    term_hi = term_hi.to(torch.int32).contiguous()
-    backend.require_cuda_int32("heap_topk", values=values, st_pos=st_pos,
-                               offsets=offsets, postings=postings,
-                               term_lo=term_lo, term_hi=term_hi)
-    if ib.dtype != torch.int8 or not ib.is_contiguous() or ib.device != values.device:
-        raise ValueError("heap_topk: ib must be a contiguous int8 tensor on the card")
-    if k < 1 or trips < 0:
-        raise ValueError(f"heap_topk: needs k >= 1 and trips >= 0, got {k}, {trips}")
+    term_lo, term_hi = _check(values, st_pos, ib, offsets, term_lo, term_hi,
+                              k, trips, postings=postings)
     levels, n_blocks = st_pos.shape
     B = term_lo.shape[0]
     out = torch.empty((B, k), dtype=torch.int32, device=values.device)
@@ -53,4 +67,36 @@ def heap_topk(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
              backend.stream(values.device))
     backend.check("heap_topk", err)
     launches += 1
+    return out, done
+
+
+def heap_topk_packed(values, st_pos, ib, offsets, packed, term_lo, term_hi, *,
+                     k: int, trips: int, n: int, n_terms: int):
+    """``heap_topk`` over compressed postings: ``packed`` is the index's
+    ``PackedPostings``; "ef" and "bitpack" each run their instantiation
+    of the kernel. See ``ref.heap_topk_ref``."""
+    global packed_launches
+    if not values.is_cuda:
+        return heap_topk_ref(values, st_pos, ib, offsets, None, term_lo,
+                             term_hi, k=k, trips=trips, n=n, n_terms=n_terms,
+                             packed=packed)
+    term_lo, term_hi = _check(values, st_pos, ib, offsets, term_lo, term_hi,
+                              k, trips, words=packed.words, base=packed.base,
+                              meta=packed.meta, wordoff=packed.wordoff)
+    levels, n_blocks = st_pos.shape
+    B = term_lo.shape[0]
+    out = torch.empty((B, k), dtype=torch.int32, device=values.device)
+    done = torch.empty(B, dtype=torch.bool, device=values.device)
+    if B == 0:
+        return out, done
+    fn = backend.load("heap_topk", "heap_topk_packed_launch", _PACKED_ARGS)
+    err = fn(backend.ptr(values), backend.ptr(ib), backend.ptr(st_pos),
+             n, values.shape[0], levels, n_blocks, backend.ptr(offsets),
+             backend.ptr(packed.words), backend.ptr(packed.base),
+             backend.ptr(packed.meta), backend.ptr(packed.wordoff),
+             packed.words.shape[0], packed.n_post, int(packed.has_ef), n_terms,
+             backend.ptr(term_lo), backend.ptr(term_hi), backend.ptr(out),
+             backend.ptr(done), B, k, trips, backend.stream(values.device))
+    backend.check("heap_topk", err)
+    packed_launches += 1
     return out, done

@@ -18,7 +18,10 @@ INF-padded, done bool[B]): ``done`` is True iff k docids were emitted or
 the heap is exhausted (the caller ORs in its bad-range and full-budget
 conditions). ``rmq_fn(p, q) -> (pos, val)`` overrides the split-subrange
 RMQ (``RangeMin.query_batch`` contract), which is how the per-pop route
-sends each pop's RMQ through the CUDA RMQ kernel.
+sends each pop's RMQ through the CUDA RMQ kernel. ``packed`` (a
+``PackedPostings``) swaps the raw postings reads for ``packed_lookup``
+decodes, the plain version of the packed kernel; answers are the same
+because ``packed_lookup(ptr) == postings[min(ptr, n_post-1)]``.
 """
 from __future__ import annotations
 
@@ -30,12 +33,16 @@ INF = 2**31 - 1
 
 
 def heap_topk_ref(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
-                  k: int, trips: int, n: int, n_terms: int, rmq_fn=None):
+                  k: int, trips: int, n: int, n_terms: int, rmq_fn=None,
+                  packed=None):
     if rmq_fn is None:
         rmq_fn = lambda p, q: rmq_window_batch(values, ib, st_pos, p, q, n=n)
     dev = term_lo.device
-    n_post = postings.shape[0]
-    lookup = lambda ptrs: postings[ptrs.clamp(0, n_post - 1)]
+    if packed is not None:
+        lookup = packed.lookup
+    else:
+        n_post = postings.shape[0]
+        lookup = lambda ptrs: postings[ptrs.clamp(0, n_post - 1)]
     i32 = dict(dtype=torch.int32, device=dev)
     term_lo = term_lo.to(torch.int32)
     B = term_lo.shape[0]

@@ -13,6 +13,10 @@ Inputs: cands int32[B, T] (INF-padded), starts/ends int32[B, P],
 postings int32[n_post], fwd_terms int32[N, M] (docid -> term row; a docid
 outside [0, N) reads a row of zeros, as ``Completions.extract`` does),
 term_lo/term_hi int32[B]. Output: bool[B, T].
+
+``conjunctive_scan_packed_ref`` is the same loop over a ``PackedPostings``
+(``packed_lookup`` decodes in place of the raw reads): the plain version of
+the packed kernel, as the JAX package's ``conjunctive_scan_packed_ref``.
 """
 from __future__ import annotations
 
@@ -30,8 +34,19 @@ def fwd_rows_of(fwd_terms, cands):
 
 def conjunctive_scan_ref(cands, starts, ends, postings, fwd_terms, term_lo,
                          term_hi, *, iters: int):
-    B, T = cands.shape
     n_post = postings.shape[0]
+    return _scan(cands, starts, ends, lambda p: postings[p.clamp(0, n_post - 1)],
+                 fwd_terms, term_lo, term_hi, iters)
+
+
+def conjunctive_scan_packed_ref(cands, starts, ends, packed, fwd_terms,
+                                term_lo, term_hi, *, iters: int):
+    return _scan(cands, starts, ends, packed.lookup, fwd_terms, term_lo,
+                 term_hi, iters)
+
+
+def _scan(cands, starts, ends, lookup, fwd_terms, term_lo, term_hi, iters):
+    B, T = cands.shape
     member = torch.ones((B, T), dtype=torch.bool, device=cands.device)
     for p in range(starts.shape[1]):
         s = starts[:, p:p + 1].to(torch.int32)
@@ -42,11 +57,11 @@ def conjunctive_scan_ref(cands, starts, ends, postings, fwd_terms, term_lo,
         hi = e.expand(B, T)
         for _ in range(iters):
             mid = (lo + hi) // 2
-            go = postings[mid.clamp(0, n_post - 1)] < cands
+            go = lookup(mid) < cands
             valid = lo < hi
             lo, hi = (torch.where(valid & go, mid + 1, lo),
                       torch.where(valid & ~go, mid, hi))
-        hit = (lo < e) & (postings[lo.clamp(0, n_post - 1)] == cands)
+        hit = (lo < e) & (lookup(lo) == cands)
         member &= torch.where(e > s, hit, True)
     rows = fwd_rows_of(fwd_terms, cands)
     fwd_ok = ((rows >= term_lo[:, None, None])

@@ -22,7 +22,7 @@ import torch
 
 from ..backend import default_use_kernel
 from ..core.builder import QACIndex
-from ..core.search import describe_single_route
+from ..core.search import _resolve_packed, describe_single_route
 from ..core.types import INF_DOCID
 from .qac import serve_multi_term, serve_single_term, serve_single_term_full
 
@@ -46,15 +46,22 @@ class QACFrontend:
     (default: true on the card) picks the CUDA kernels over the plain
     PyTorch versions. ``specialize_list_pad`` derives the multi-term probe
     depth from the longest list each sub-batch probes instead of the
-    longest list in the index.
+    longest list in the index. ``postings_codec`` ("ef" or "bitpack")
+    sends both engines through the index's compressed postings, decoded in
+    the packed kernels (or their plain versions); the index must have been
+    packed with that codec (``ValueError`` otherwise). None, "auto" and
+    "raw" read raw CSR.
     """
 
     def __init__(self, qidx: QACIndex, *, k: int = 10, tile: int = 128,
                  max_tiles: int = 4096, min_bucket: int = 8,
                  trips: int | None = None, use_kernel: bool | None = None,
                  heap_kernel: bool | None = None,
-                 specialize_list_pad: bool = True):
+                 specialize_list_pad: bool = True,
+                 postings_codec: str | None = None):
         self.qidx = qidx
+        self.postings_codec = postings_codec
+        self._explicit_packed = _resolve_packed(qidx.index, postings_codec) is not None
         self.device = qidx.device
         self.k = k
         self.tile = tile
@@ -91,12 +98,16 @@ class QACFrontend:
     def describe_route(self, engine: str, bucket: int = 0,
                        list_pad: int = 0) -> str:
         """The kernel route a dispatch on ``engine`` takes: "heap_topk[raw]",
-        "per_pop_rmq[kernel]", "intersect[raw]" or "torch_ref"."""
+        "heap_topk[ef]", "heap_topk[bitpack]", "per_pop_rmq[kernel]",
+        "intersect[raw]", "intersect[packed]" or "torch_ref"."""
         if engine in ("single", "single_full"):
             return describe_single_route(use_kernel=self.use_kernel,
-                                         heap_kernel=self.heap_kernel)
+                                         heap_kernel=self.heap_kernel,
+                                         postings_codec=self.postings_codec)
         if engine == "multi":
-            return "intersect[raw]" if self.use_kernel else "torch_ref"
+            if not self.use_kernel:
+                return "torch_ref"
+            return "intersect[packed]" if self._explicit_packed else "intersect[raw]"
         return engine
 
     def begin_dispatch_log(self):
@@ -114,7 +125,8 @@ class QACFrontend:
                 (key, self.describe_route(engine, bucket, list_pad)))
         fn = self._cache.get(key)
         if fn is None:
-            kw = dict(k=k, use_kernel=self.use_kernel)
+            kw = dict(k=k, use_kernel=self.use_kernel,
+                      postings_codec=self.postings_codec)
             if engine == "single":
                 def fn(suf, slen):
                     out, done = serve_single_term(

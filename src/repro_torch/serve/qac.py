@@ -2,7 +2,9 @@
 
 Each runs on the device of the index it is given. ``use_kernel=None``
 resolves to the CUDA kernels on the card and the plain PyTorch versions on
-the CPU (``backend.default_use_kernel``).
+the CPU (``backend.default_use_kernel``). ``postings_codec`` ("ef" or
+"bitpack") sends the engines through the index's compressed postings
+(``core.search``); None reads raw CSR.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ def _use_kernel(qidx: QACIndex, use_kernel: bool | None) -> bool:
 
 def serve_single_term(qidx: QACIndex, suffix_chars, suffix_len, *, k: int = 10,
                       trips: int | None = None, use_kernel: bool | None = None,
-                      heap_kernel: bool | None = None):
+                      heap_kernel: bool | None = None,
+                      postings_codec: str | None = None):
     """Batched single-term serve (paper §3.3) -> (docids int32[B, k], done).
 
     ``trips`` bounds the heap pops per lane (default k + 2); ``done[b]`` is
@@ -29,26 +32,30 @@ def serve_single_term(qidx: QACIndex, suffix_chars, suffix_len, *, k: int = 10,
     term_lo, term_hi = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
     return single_term_topk_bounded_batch(
         qidx.index, qidx.rmq_minimal, term_lo, term_hi, k, trips,
-        use_kernel=_use_kernel(qidx, use_kernel), heap_kernel=heap_kernel)
+        use_kernel=_use_kernel(qidx, use_kernel), heap_kernel=heap_kernel,
+        postings_codec=postings_codec)
 
 
 def serve_single_term_full(qidx: QACIndex, suffix_chars, suffix_len, *,
                            k: int = 10, use_kernel: bool | None = None,
-                           heap_kernel: bool | None = None):
+                           heap_kernel: bool | None = None,
+                           postings_codec: str | None = None):
     """Batched single-term serve, full 2k-trip budget (always exact)."""
     term_lo, term_hi = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
     return single_term_topk_batch(
         qidx.index, qidx.rmq_minimal, term_lo, term_hi, k,
-        use_kernel=_use_kernel(qidx, use_kernel), heap_kernel=heap_kernel)
+        use_kernel=_use_kernel(qidx, use_kernel), heap_kernel=heap_kernel,
+        postings_codec=postings_codec)
 
 
 def serve_multi_term(qidx: QACIndex, prefix_ids, prefix_len, suffix_chars,
                      suffix_len, *, k: int = 10, tile: int = 128,
                      max_tiles: int = 4096, use_kernel: bool | None = None,
-                     probe_iters: int = 0):
+                     probe_iters: int = 0, postings_codec: str | None = None):
     """Batched conjunctive serve (Fig 5 Fwd) for a 100%-multi-term batch."""
     term_lo, term_hi = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
     return conjunctive_multi_batch(
         qidx.index, qidx.completions, prefix_ids, prefix_len, term_lo, term_hi,
         k, tile=tile, max_tiles=max_tiles,
-        use_kernel=_use_kernel(qidx, use_kernel), probe_iters=probe_iters)
+        use_kernel=_use_kernel(qidx, use_kernel), probe_iters=probe_iters,
+        postings_codec=postings_codec)

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from repro.core import build_qac_index
+from repro.core.codecs import pack_postings
 from repro.text import SynthLogConfig, generate_query_log
 from repro_torch.convert import COMPONENTS, qac_index_from_arrays
 
@@ -15,32 +16,50 @@ from repro_torch.convert import COMPONENTS, qac_index_from_arrays
 def qac_index_to_arrays(qidx) -> tuple[dict[str, np.ndarray], dict]:
     """(arrays, meta) of a JAX or a port ``QACIndex``, as
     ``qac_index_from_arrays`` takes them: each leaf through ``np.asarray``
-    (a tensor through ``.cpu().numpy()``); fields that are None (an index
-    built without compressed postings) are left out."""
+    (a tensor through ``.cpu().numpy()``), the packed postings flattened to
+    ``index.packed.<field>``; fields that are None (an index built without
+    compressed postings) are left out."""
     arrays, meta = {}, {"k_default": int(qidx.k_default)}
-    for comp in COMPONENTS:
-        obj = getattr(qidx, comp)
+
+    def flatten(obj, prefix):
         for f in dataclasses.fields(obj):
             v = getattr(obj, f.name)
+            key = f"{prefix}.{f.name}"
             if v is None:
                 continue
-            if isinstance(v, int):
-                meta[f"{comp}.{f.name}"] = v
+            if isinstance(v, (int, str)):
+                meta[key] = v
+            elif dataclasses.is_dataclass(v):
+                flatten(v, key)
             elif isinstance(v, torch.Tensor):
-                arrays[f"{comp}.{f.name}"] = v.cpu().numpy()
+                arrays[key] = v.cpu().numpy()
             else:
-                arrays[f"{comp}.{f.name}"] = np.asarray(v)
+                arrays[key] = np.asarray(v)
+
+    for comp in COMPONENTS:
+        flatten(getattr(qidx, comp), comp)
     return arrays, meta
 
 
-def build_pair(n_queries, vocab_size, seed, mean_term_chars=4.0):
-    """-> (JAX QACIndex, port QACIndex on the CPU, kept query strings)."""
+def build_pair(n_queries, vocab_size, seed, mean_term_chars=4.0,
+               postings_codec=None):
+    """-> (JAX QACIndex, port QACIndex on the CPU, kept query strings), the
+    JAX index built with ``postings_codec`` and carried over as arrays."""
     qs, sc = generate_query_log(SynthLogConfig(
         n_queries=n_queries, vocab_size=vocab_size,
         mean_term_chars=mean_term_chars, seed=seed))
-    jq, kept, _ = build_qac_index(qs, sc, postings_codec=None)
+    jq, kept, _ = build_qac_index(qs, sc, postings_codec=postings_codec)
     arrays, meta = qac_index_to_arrays(jq)
     return jq, qac_index_from_arrays(arrays, meta, device="cpu"), kept
+
+
+def with_codec(jq, codec):
+    """(the JAX index with its postings packed as ``codec``, the port's copy
+    of it on the CPU). The raw postings and every other array are shared."""
+    if jq.index.packed is None or jq.index.packed.codec != codec:
+        pk = pack_postings(np.asarray(jq.index.postings), codec)
+        jq = dataclasses.replace(jq, index=dataclasses.replace(jq.index, packed=pk))
+    return jq, qac_index_from_arrays(*qac_index_to_arrays(jq), device="cpu")
 
 
 def partials(kept, rng, B, pct_single=50, pct_garbage=0):

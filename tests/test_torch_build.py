@@ -22,7 +22,7 @@ CORPORA = [dict(n_queries=600, vocab_size=150, mean_term_chars=4.0, seed=5),
 def both(request):
     cfg = CORPORA[request.param]
     qs, sc = jax_log(JaxCfg(**cfg))
-    jq, jkept, _ = jax_build(qs, sc, postings_codec=None)
+    jq, jkept, _ = jax_build(qs, sc)          # both default to "ef" postings
     tq, tkept, tsc = build_qac_index(qs, sc, device="cpu")
     return cfg, qs, sc, jq, jkept, tq, tkept
 
@@ -39,7 +39,7 @@ def test_every_index_array_equals_jax(both):
     assert tkept == jkept
     ja, jm = qac_index_to_arrays(jq)
     ta, tm = qac_index_to_arrays(tq)
-    assert sorted(ja) == sorted(ta) and len(ta) == 15
+    assert sorted(ja) == sorted(ta) and len(ta) == 19     # 4 packed arrays
     for key in ja:
         assert ta[key].dtype == ja[key].dtype, key
         assert np.array_equal(ta[key], ja[key]), key
@@ -87,8 +87,15 @@ def test_arrays_round_trip(both):
     for key in ja:
         assert np.array_equal(back[key], ja[key]) and back[key].dtype == ja[key].dtype
         assert np.array_equal(again[key], ja[key])
+    assert from_jax.index.packed.codec == "ef"
+    raw = {k: v for k, v in ja.items() if not k.startswith("index.packed.")}
+    raw_meta = {k: v for k, v in jm.items() if not k.startswith("index.packed.")}
+    assert qac_index_from_arrays(raw, raw_meta, device="cpu").index.packed is None
     with pytest.raises(KeyError):
-        qac_index_from_arrays({**ja, "index.packed": ja["index.postings"]}, jm, device="cpu")
+        qac_index_from_arrays({**ja, "index.unknown": ja["index.postings"]}, jm, device="cpu")
+    with pytest.raises(KeyError):
+        qac_index_from_arrays({**raw, "index.packed": ja["index.postings"]},
+                              raw_meta, device="cpu")
     with pytest.raises(KeyError):
         qac_index_from_arrays({k: v for k, v in ja.items() if k != "index.offsets"},
                               jm, device="cpu")

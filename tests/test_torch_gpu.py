@@ -4,18 +4,24 @@ Every test here is marked ``gpu`` and skips without a card; run them on the
 card with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_*.py``.
 This file imports nothing of JAX (the card's machine need not have it):
 the plain versions are the oracle, and they are held against the JAX
-package by the CPU tests. Integer outputs must be bit-identical; RMQ ``pos``
-is compared wherever ``val < INF``.
+package by the CPU tests. The packed kernels run for both codecs: the
+"ef" postings of ``build_qac_index`` and a "bitpack" packing of the same
+lists. Integer outputs must be bit-identical; RMQ ``pos`` is compared
+wherever ``val < INF``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import build_qac_index, parse_queries
+from repro_torch.core.codecs import pack_postings
 from repro_torch.kernels.heap_topk import ops as heap_ops
 from repro_torch.kernels.heap_topk.ref import heap_topk_ref
 from repro_torch.kernels.intersect import ops as isect_ops
-from repro_torch.kernels.intersect.ref import conjunctive_scan_ref
+from repro_torch.kernels.intersect.ref import (conjunctive_scan_packed_ref,
+                                               conjunctive_scan_ref)
 from repro_torch.kernels.rmq import ops as rmq_ops
 from repro_torch.kernels.rmq.ref import rmq_window_batch
 from repro_torch.serve import QACFrontend
@@ -31,8 +37,15 @@ def built():
         pytest.skip("needs a CUDA card")
     qs, sc = generate_query_log(SynthLogConfig(n_queries=3000, vocab_size=300,
                                                mean_term_chars=4.0, seed=3))
-    qidx, kept, _ = build_qac_index(qs, sc, device="cuda")
+    qidx, kept, _ = build_qac_index(qs, sc, device="cuda")    # "ef" postings
+    assert bool((qidx.index.packed.meta >> 6).any()), "expected EF blocks"
     return qidx, kept
+
+
+def _packed(qidx, codec):
+    if codec == "ef":
+        return qidx.index.packed
+    return pack_postings(qidx.index.postings.cpu().numpy(), codec, device="cuda")
 
 
 def _partials(kept, rng, B, pct_single=50, pct_garbage=10):
@@ -86,7 +99,57 @@ def test_heap_topk_kernel_matches_plain(built, k, trips):
     assert torch.equal(done, want_done)
 
 
-def test_conjunctive_scan_kernel_matches_plain(built):
+@pytest.mark.parametrize("codec", ["ef", "bitpack"])
+@pytest.mark.parametrize("k,trips", [(10, 12), (1, 2), (64, 128)])
+def test_packed_heap_topk_kernel_matches_plain(built, codec, k, trips):
+    qidx, kept = built
+    pk = _packed(qidx, codec)
+    rng = np.random.default_rng(k + trips + 1)
+    _, _, _, suf, slen = parse_queries(qidx.dictionary, _partials(kept, rng, 200, 100, 20))
+    tl, th = qidx.dictionary.locate_prefix(suf, slen)
+    tl = torch.cat([tl, torch.tensor([5, 1, 0], dtype=torch.int32, device="cuda")])
+    th = torch.cat([th, torch.tensor([3, 1, qidx.index.n_terms + 1], dtype=torch.int32, device="cuda")])
+    rm, idx = qidx.rmq_minimal, qidx.index
+    kw = dict(k=k, trips=trips, n=rm.n, n_terms=idx.n_terms)
+    before = heap_ops.packed_launches
+    out, done = heap_ops.heap_topk_packed(rm.values, rm.st_pos, rm.ib, idx.offsets,
+                                          pk, tl, th, **kw)
+    torch.cuda.synchronize()
+    assert heap_ops.packed_launches == before + 1
+    want_out, want_done = heap_topk_ref(rm.values, rm.st_pos, rm.ib, idx.offsets,
+                                        None, tl, th, **kw, packed=pk)
+    assert torch.equal(out, want_out)
+    assert torch.equal(done, want_done)
+
+
+@pytest.mark.parametrize("codec", ["ef", "bitpack"])
+def test_packed_lookup_in_kernel_matches_plain(built, codec):
+    """Every pointer of the index through the packed scan: a one-slot span
+    [p, p+1) holds candidate c iff lookup(p) == c."""
+    qidx, _ = built
+    pk = _packed(qidx, codec)
+    idx = qidx.index
+    n = idx.n_postings
+    ptrs = torch.arange(n, dtype=torch.int32, device="cuda")
+    want = pk.lookup(ptrs)
+    assert torch.equal(want, idx.postings)
+    B = ptrs.numel()
+    starts = ptrs[:, None]
+    fwd = qidx.completions.fwd_terms
+    lo = torch.full((B,), -1, dtype=torch.int32, device="cuda")
+    hi = torch.full((B,), 2**31 - 2, dtype=torch.int32, device="cuda")
+    cands = torch.stack([want, want + 1], dim=1)
+    got = isect_ops.conjunctive_scan_packed(cands, starts, starts + 1, pk, fwd, lo,
+                                            hi, iters=2)
+    torch.cuda.synchronize()
+    plain = conjunctive_scan_packed_ref(cands, starts, starts + 1, pk, fwd, lo, hi,
+                                        iters=2)
+    assert torch.equal(got, plain)
+    assert bool(got[:, 0].all()) and not bool(got[:, 1].any())
+
+
+@pytest.mark.parametrize("codec", [None, "ef", "bitpack"])
+def test_conjunctive_scan_kernel_matches_plain(built, codec):
     qidx, kept = built
     rng = np.random.default_rng(7)
     pids, plen, _, suf, slen = parse_queries(qidx.dictionary, _partials(kept, rng, 64, 0, 0))
@@ -99,11 +162,18 @@ def test_conjunctive_scan_kernel_matches_plain(built):
     cands = idx.postings[torch.tensor(rng.integers(0, idx.n_postings, (64, 128)),
                                       device="cuda")]
     cands[:, -8:] = INF
-    args = (cands, starts, ends, idx.postings, qidx.completions.fwd_terms, tl, th)
-    got = isect_ops.conjunctive_scan(*args, iters=idx.n_postings.bit_length())
+    postings = idx.postings if codec is None else _packed(qidx, codec)
+    args = (cands, starts, ends, postings, qidx.completions.fwd_terms, tl, th)
+    iters = idx.n_postings.bit_length()
+    if codec is None:
+        got = isect_ops.conjunctive_scan(*args, iters=iters)
+        want = conjunctive_scan_ref(*args, iters=iters)
+    else:
+        got = isect_ops.conjunctive_scan_packed(*args, iters=iters)
+        want = conjunctive_scan_packed_ref(*args, iters=iters)
     torch.cuda.synchronize()
-    want = conjunctive_scan_ref(*args, iters=idx.n_postings.bit_length())
     assert torch.equal(got, want)
+    assert bool(got.any())
 
 
 def test_frontend_routes_agree_on_card(built):
@@ -119,3 +189,13 @@ def test_frontend_routes_agree_on_card(built):
     np.testing.assert_array_equal(per_pop, plain)
     after = (heap_ops.launches, rmq_ops.launches, isect_ops.launches)
     assert all(a > b for a, b in zip(after, counts))
+    for codec in ("ef", "bitpack"):
+        q = qidx if codec == "ef" else dataclasses.replace(
+            qidx, index=dataclasses.replace(qidx.index, packed=_packed(qidx, codec)))
+        counts = (heap_ops.launches, isect_ops.launches,
+                  heap_ops.packed_launches, isect_ops.packed_launches)
+        got = QACFrontend(q, postings_codec=codec).complete(pids, plen, suf, slen)
+        np.testing.assert_array_equal(got, plain)
+        after = (heap_ops.launches, isect_ops.launches,
+                 heap_ops.packed_launches, isect_ops.packed_launches)
+        assert after[:2] == counts[:2] and all(a > b for a, b in zip(after[2:], counts[2:]))

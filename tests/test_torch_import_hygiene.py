@@ -74,12 +74,20 @@ def test_entry_points_without_device_need_a_card():
     assert qidx.device.type == "cpu"
 
 
-def test_packed_codecs_are_not_ported_yet():
+def test_packed_codecs_build_and_an_unknown_codec_raises():
     from repro_torch.core import build_qac_index
+    from repro_torch.core.codecs import unpack_postings
 
     for codec in ("ef", "bitpack"):
-        with pytest.raises(NotImplementedError):
-            build_qac_index(["a b"], [1.0], postings_codec=codec, device="cpu")
+        qidx, _, _ = build_qac_index(["a b", "a c", "b c d"], [1.0, 2.0, 3.0],
+                                     postings_codec=codec, device="cpu")
+        pk = qidx.index.packed
+        assert pk.codec == codec and pk.n_post == qidx.index.n_postings
+        assert (unpack_postings(pk) == qidx.index.postings.numpy()).all()
+    qidx, _, _ = build_qac_index(["a b"], [1.0], postings_codec=None, device="cpu")
+    assert qidx.index.packed is None
+    with pytest.raises(ValueError, match="unknown postings_codec"):
+        build_qac_index(["a b"], [1.0], postings_codec="vbyte", device="cpu")
 
 
 def _run_smoke(cwd: Path):
