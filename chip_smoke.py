@@ -1,34 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's QAC serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's QAC and recsys serving paths on one NVIDIA card.
 
     python3 chip_smoke.py [--queries N] [--vocab V] [--batch B] [--seed S]
 
 Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
-  2. the build of every CUDA kernel of the path from ``src/repro_torch/csrc``;
-  3. a full-width index from the port's own builder at the widths of the
+  2. the build of every CUDA kernel from ``src/repro_torch/csrc``, one
+     ``nvcc`` per source, all at once;
+  3. the recsys path at the full widths of the repo's configs: each model at
+     smoke width on the card against the CPU; FM (39 fields x 1M rows x 10)
+     at B = 512, 262,144 and 1,048,576 through the fm_pairwise kernel and the
+     plain route (logits within rtol 1e-5, atol 1e-6; one launch per kernel
+     forward, none on the plain one), its median ms per batch, one traced
+     forward, and the kernel held against its plain version at each shape
+     (and in bf16 at 262,144); DIN and BST at B=512 and MIND's retrieval of
+     one user against 1,048,576 items (k=100), finite and launching no
+     kernel; peak device memory per model;
+  4. a full-width index from the port's own builder at the widths of the
      repo's production configuration (qac-ebay: k=10, MAX_TERMS=8,
      MAX_TERM_CHARS=24, a 1M-term vocabulary, ~10M completions), from a log
      with the distributions of ``SynthLogConfig``, with its postings packed
-     as "ef" (the default of ``build_qac_index``) and the same lists packed once more as
-     "bitpack", each round-tripped, and their sizes;
-  4. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (bit-identical), the packed kernels for both codecs; the
-     kernel's device time per launch from ``torch.profiler``, and CUDA-event
-     times per call of the wrapper (host-inclusive) and of the plain version
-     (a few calls only for the packed plain versions, which decode with many
-     small PyTorch ops per read);
-  5. the main path: parse_queries -> QACFrontend.complete on 256 sampled
-     partial queries through the kernel route, the per-pop RMQ route, the
-     plain-PyTorch route and the compressed-postings routes
-     (``postings_codec="ef"`` and ``"bitpack"``), all bit-identical, plus a
-     per-request-k batch on every route but the plain one, the answers also
-     checked against a brute-force host search; each route's kernel launch
-     counts on the main batch, counted from 0 just before its call and read
-     just after; then one traced call of the kernel route and of the "ef"
-     route (``torch.profiler``, CUDA activity) for the device's busy share and
-     the kernels that take its time;
-  6. one JSON line naming every kernel with its launches, times and bound.
+     as "ef" (the default of ``build_qac_index``) and the same lists packed
+     once more as "bitpack", each round-tripped, and their sizes;
+  5. each QAC kernel against its plain PyTorch version on the card at the
+     main path's shapes (bit-identical), the packed kernels for both codecs;
+     the kernel's device time per launch from ``torch.profiler``, and
+     CUDA-event times per call of the wrapper (host-inclusive) and of the
+     plain version (3 calls only for the plain heap_topk and packed scan,
+     which take up to a second each);
+  6. the QAC path: parse_queries -> QACFrontend.complete on 256 sampled
+     partial queries through the kernel route, the per-pop RMQ route and the
+     compressed-postings routes (``postings_codec="ef"`` and ``"bitpack"``),
+     all bit-identical, and the plain-PyTorch route on the first 32 of them
+     (equal to the kernel route's first 32 answers), plus a per-request-k
+     batch on every route but the plain one, the answers also checked
+     against a brute-force host search; each route's kernel launch counts on
+     the main batch, counted from 0 just before its call and read just
+     after; then one traced call of the kernel route and of the "ef" route
+     (``torch.profiler``, CUDA activity) for the device's busy share and the
+     kernels that take its time;
+  7. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
 """
@@ -46,10 +57,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12             # H100 SXM fp32 rate outside the tensor cores
 INF = 2**31 - 1
 DEVICE = "cuda"
 CODECS = ("ef", "bitpack")
 MAX_PACKED_READ = 12 + 8 + 32      # directory, two payload words, the EF bitmap
+PLAIN_QUERIES = 32                 # the plain route's share of the main batch
 KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
               #          kernel it replaces, the frontend routes whose
               #          main-batch runs launch it)
@@ -69,13 +82,17 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
                                 "packed_launches",
                                 "src/repro_torch/csrc/intersect.cu",
                                 "src/repro/kernels/intersect/kernel.py:110", CODECS),
+    "fm_pairwise": ("repro_torch.kernels.fm_pairwise.ops", "launches",
+                    "src/repro_torch/csrc/fm_pairwise.cu",
+                    "src/repro/kernels/fm_pairwise/kernel.py:27", ("recsys",)),
 }
 # the kernels each frontend route's main-batch run launches, and no others
 ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_scan"),
                  "per_pop_rmq": ("rmq_query", "conjunctive_scan"),
                  "plain": (),
                  "ef": ("heap_topk_packed", "conjunctive_scan_packed"),
-                 "bitpack": ("heap_topk_packed", "conjunctive_scan_packed")}
+                 "bitpack": ("heap_topk_packed", "conjunctive_scan_packed"),
+                 "recsys": ("fm_pairwise",)}
 # the __global__ each wrapper launches, as the profiler names it
 TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               "heap_topk": "heap_topk_kernel<qac::RawLookup>",
@@ -85,7 +102,10 @@ TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               ("conjunctive_scan_packed", "ef"):
                   "conjunctive_scan_kernel<qac::PackedLookup<true>",
               ("conjunctive_scan_packed", "bitpack"):
-                  "conjunctive_scan_kernel<qac::PackedLookup<false>"}
+                  "conjunctive_scan_kernel<qac::PackedLookup<false>",
+              "fm_pairwise": "fm_pairwise_kernel<"}   # <float> or <__nv_bfloat16>
+FM_TOL = dict(rtol=1e-5, atol=1e-6)        # FM logits, and the kernel vs plain
+FLOAT_TOL = dict(rtol=1e-4, atol=1e-5)     # DIN, BST and MIND
 
 
 def say(*a):
@@ -104,7 +124,7 @@ def nvidia_smi() -> str:
 
 
 # --------------------------------------------------------------------------
-# phase 3: the query log
+# phase 4: the query log
 # --------------------------------------------------------------------------
 def make_log(n_queries: int, vocab_size: int, seed: int):
     """A scored log with the distributions of ``SynthLogConfig`` (Poisson(7)
@@ -152,27 +172,78 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, tag: str, reps: int) -> float:
-    """Mean device ms per launch of the ``__global__`` whose traced name
-    holds ``tag`` over ``reps`` calls of ``fn`` after warm-up, from
-    ``torch.profiler``'s CUDA activity (the kernel's own time, without the
-    host's cost of the call). The trace may miss a launch at the edge of its
-    window, so the mean is over the launches it holds."""
-    from torch.profiler import ProfilerActivity, profile
+def traced(torch, fn, reps: int, tag: str, want: int, tries: int = 3):
+    """``torch.profiler``'s CUDA activity over ``reps`` calls of ``fn``,
+    which launch the ``__global__`` whose traced name holds ``tag`` ``want``
+    times. Returns (profile, the launches it holds). The tracer drops
+    launch records, a few at a window's edges and, late in a long process
+    with many traces, a tenth of a short window. So each trace starts with a
+    warm-up step of the profiler (its events are dropped) before the
+    recorded one; a trace holding fewer than 90% of the launches is taken
+    again, up to ``tries`` times; then the fullest is used if it holds at
+    least half of them (and says so), and anything less fails."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    best = (None, -1)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for step_reps in (min(reps, 10), reps):
+                for _ in range(step_reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        held = sum(e.count for e in prof.key_averages() if tag in e.key)
+        if want * 0.9 <= held <= want:
+            return prof, held
+        if best[1] < held <= want:
+            best = (prof, held)
+    if best[1] >= want * 0.5:
+        say(f"[trace] {tag}: the fullest of {tries} traces holds {best[1]} of {want} "
+            f"launches; its figures are over those")
+        return best
+    fail(f"{tries} traces held {held} launches of {tag}, of {want} made; the last "
+         f"names {[e.key[:120] for e in device_times_events(prof)]}")
+
+
+def device_times_events(prof):
+    return [e for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
+def kernel_device_ms(torch, fn, tag: str, reps: int) -> tuple[float, int]:
+    """(mean device ms per launch, launches traced) of the ``__global__``
+    whose traced name holds ``tag`` over ``reps`` calls of ``fn`` after
+    warm-up, from ``torch.profiler``'s CUDA activity (the kernel's own time,
+    without the host's cost of the call), averaged over the launches the
+    trace holds."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    hits = [e for e in events if tag in e.key]
-    count = sum(e.count for e in hits)
-    if not reps * 0.9 <= count <= reps:
-        fail(f"the trace holds {count} launches of {tag}, of {reps} made; "
-             f"it names {[e.key[:120] for e in events]}")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    prof, held = traced(torch, fn, reps, tag, reps)
+    hits = [e for e in device_times_events(prof) if tag in e.key]
+    return sum(e.self_device_time_total for e in hits) / held / 1e3, held
+
+
+def median_ms(torch, fn, reps: int) -> float:
+    """Median ms of ``reps`` calls after warm-up, each between its own pair
+    of CUDA events (host-inclusive at small sizes, as ``cuda_ms``)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_times(prof):
+    """(device us, kernel name, launches) per kernel of a trace, largest first."""
+    return sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in device_times_events(prof)), reverse=True)
 
 
 def rmq_bytes(torch, n, p, q) -> int:
@@ -281,6 +352,176 @@ def brute_force(arrays, plen, pids, tlo, thi, k, scan_cap):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 3: recsys serving
+# --------------------------------------------------------------------------
+def fm_host_logits(torch, model, ids) -> np.ndarray:
+    """FM logits in float64 on the host by the explicit pair sum: bias +
+    sum_f linear + sum_{i<j} <v_i, v_j>."""
+    from repro_torch.models.recsys import clamp_rows
+
+    n_f, V, D = model.tables.shape
+    flat = clamp_rows(ids, V) + torch.arange(n_f, device=ids.device) * V
+    emb = model.tables.view(n_f * V, D)[flat].double().cpu().numpy()
+    lin = model.linear.view(n_f * V)[flat].double().cpu().numpy().sum(-1)
+    pair = sum((emb[:, i] * emb[:, j]).sum(-1) for i in range(n_f) for j in range(i + 1, n_f))
+    return float(model.bias) + lin + pair
+
+
+def recsys_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
+    """FM at its three inference shapes through the kernel and the plain
+    route, the kernel held against its plain version there (and in bf16),
+    DIN and BST at serve_p99, MIND's retrieval of one user against 1M items;
+    every model also at smoke width on the card against the CPU. Returns the
+    launch counts summed over the counted runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_common import MODEL_CLS, RECSYS_SHAPES
+    from repro_torch.data import recsys_batch
+    from repro_torch.kernels.fm_pairwise import ops as fm_ops
+    from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_ref
+    from repro_torch.models.recsys import clamp_rows
+
+    total = {}
+
+    def counted_run(fn, want_fm):
+        """fn() with the counts from 0 just before to just after; the run
+        must launch fm_pairwise ``want_fm`` times and nothing else."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        if any(c != (want_fm if name == "fm_pairwise" else 0) for name, c in got.items()):
+            fail(f"recsys: a run launched {got}; it launches fm_pairwise {want_fm} times only")
+        for name, c in got.items():
+            total[name] = total.get(name, 0) + c
+        return out
+
+    def on_card(feats_np):
+        return {k: torch.from_numpy(v).to(dev) for k, v in feats_np.items()}
+
+    def memory(model):
+        n = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        return (f"{n / 2**30:.3f} GiB of weights, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+                f"GiB allocated")
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # smoke width: each model on the card against the same weights on the CPU
+    for kind, cls in MODEL_CLS.items():
+        cfg = get_arch(kind).smoke_cfg
+        card_m = cls(cfg, device=dev, seed=seed)
+        cpu_m = cls(cfg, device="cpu")
+        cpu_m.load_state_dict({k: v.cpu() for k, v in card_m.state_dict().items()})
+        feats_np, _ = recsys_batch(cfg, 64, np.random.default_rng(seed))
+        with torch.inference_mode():
+            got = card_m(on_card(feats_np)).cpu()
+            want = cpu_m({k: torch.from_numpy(v) for k, v in feats_np.items()})
+        tol = FM_TOL if kind == "fm" else FLOAT_TOL
+        if not torch.allclose(got, want, **tol) or not bool(torch.isfinite(got).all()):
+            fail(f"recsys {kind} smoke width: the card's logits differ from the CPU's "
+                 f"by {float((got - want).abs().max())}")
+        say(f"[recsys] {kind} smoke width: the card's logits equal the CPU's within "
+            f"{tol}, max |diff| {float((got - want).abs().max()):.3g}")
+
+    # FM at full width, its three inference shapes
+    cfg = get_arch("fm").cfg
+    torch.cuda.reset_peak_memory_stats()
+    model = MODEL_CLS["fm"](cfg, device=dev, seed=seed)
+    n_f, V, D = model.tables.shape
+    fm_batches = [(name, RECSYS_SHAPES[name]["batch"]) for name in ("serve_p99", "serve_bulk")]
+    fm_batches.append(("retrieval_cand", RECSYS_SHAPES["retrieval_cand"]["n_cand"]))
+    for shape, B in fm_batches:
+        t0 = time.perf_counter()
+        feats = on_card(recsys_batch(cfg, B, np.random.default_rng(seed))[0])
+        t_data = time.perf_counter() - t0
+        with torch.inference_mode():
+            model.use_kernel = True
+            logits = counted_run(lambda: model(feats), 1)
+            model.use_kernel = False
+            plain = counted_run(lambda: model(feats), 0)
+            if logits.shape != (B,) or not bool(torch.isfinite(logits).all()):
+                fail(f"fm {shape}: logits of shape {tuple(logits.shape)}, finite "
+                     f"{bool(torch.isfinite(logits).all())}")
+            if not torch.allclose(logits, plain, **FM_TOL):
+                fail(f"fm {shape}: kernel and plain logits differ by "
+                     f"{float((logits - plain).abs().max())}")
+            if shape == "serve_p99":
+                want = fm_host_logits(torch, model, feats["sparse_ids"][:64])
+                if not np.allclose(logits[:64].cpu().numpy(), want, **FM_TOL):
+                    fail("fm: logits differ from the explicit pair sum in float64")
+            t_plain = median_ms(torch, lambda: model(feats), 20)
+            model.use_kernel = True
+            t_kernel = median_ms(torch, lambda: model(feats), 20)
+            events = device_times(traced(torch, lambda: model(feats), 1,
+                                         TRACE_TAGS["fm_pairwise"], 1)[0])
+            flat = clamp_rows(feats["sparse_ids"], V) + torch.arange(n_f, device=dev) * V
+            emb = model.tables.view(n_f * V, D)[flat]
+            cases = [(emb, "fp32")] + ([(emb.to(torch.bfloat16), "bf16")]
+                                       if shape == "serve_bulk" else [])
+            for e, dt in cases:
+                c = hold("fm_pairwise", lambda: fm_ops.fm_pairwise(e), lambda: fm_pairwise_ref(e),
+                         lambda g, w: torch.allclose(g, w, **FM_TOL),
+                         B * n_f * D * e.element_size() + 4 * B, 200,
+                         f"{shape} B={B} F={n_f} D={D} {dt}",
+                         ops_needed=B * (3 * n_f * D + 3 * D + 1))
+                say(f"[kernel] fm_pairwise {c['case']}: device {c['ms']*1e3:.2f} us/launch, "
+                    f"call {c['call_ms']*1e3:.2f} us, plain {c['plain_ms']*1e3:.2f} us, "
+                    f"bound {c['bound_ms']*1e3:.4f} us ({c['bound_by']}, {c['bytes']} B), "
+                    f"max |kernel - plain| {c['max_abs_err']:.3g} on {smi}")
+            del flat, emb, cases
+        busy = sum(d for d, _, _ in events)
+        say(f"[recsys] fm {shape} B={B}: kernel route {t_kernel:.4f} ms/batch "
+            f"({t_kernel / B * 1e3:.5f} us/row), plain route {t_plain:.4f} ms/batch "
+            f"({t_plain / B * 1e3:.5f} us/row), median of 20 | logits equal within "
+            f"{FM_TOL}, max |diff| {float((logits - plain).abs().max()):.3g} | batch "
+            f"made in {t_data:.2f} s on the host | one traced forward: device busy "
+            f"{busy / 1e3:.4f} ms on {smi}")
+        for d, key, count in events[:6]:
+            say(f"[recsys]   {d / 1e3:9.4f} ms  {count:4d} x  {key[:90]}")
+        del feats, logits, plain
+    say(f"[recsys] fm: {memory(model)}")
+    del model
+    torch.cuda.empty_cache()
+
+    # DIN and BST at serve_p99, MIND's retrieval against the first 1M items
+    B = RECSYS_SHAPES["serve_p99"]["batch"]
+    for kind in ("din", "bst", "mind"):
+        cfg = get_arch(kind).cfg
+        torch.cuda.reset_peak_memory_stats()
+        model = MODEL_CLS[kind](cfg, device=dev, seed=seed)
+        with torch.inference_mode():
+            if kind == "mind":
+                n_cand = RECSYS_SHAPES["retrieval_cand"]["n_cand"]
+                feats = on_card(recsys_batch(cfg, 1, np.random.default_rng(seed))[0])
+                cand = model.item_table[:n_cand]
+                run = lambda: model.retrieve(feats, cand, k=100)     # noqa: E731
+                vals, idx = counted_run(run, 0)
+                caps = model.interests(feats["hist_items"], feats["hist_mask"])
+                score = torch.einsum("bkd,nd->bkn", caps, cand).amax(1)
+                ok = (vals.shape == (1, 100) and idx.dtype == torch.int32
+                      and bool(torch.isfinite(vals).all())
+                      and bool(((idx >= 0) & (idx < n_cand)).all())
+                      and torch.equal(vals, score.sort(-1, descending=True).values[:, :100])
+                      and torch.equal(score.gather(1, idx.long()), vals))
+                what = f"retrieve 1 user x {n_cand} items, k=100"
+            else:
+                feats = on_card(recsys_batch(cfg, B, np.random.default_rng(seed))[0])
+                run = lambda: model(feats)                           # noqa: E731
+                out = counted_run(run, 0)
+                ok = out.shape == (B,) and bool(torch.isfinite(out).all())
+                what = f"serve_p99 B={B}"
+            if not ok or model.device.type != dev.type:
+                fail(f"recsys {kind} {what}: unexpected output")
+            t = median_ms(torch, run, 20)
+        say(f"[recsys] {kind} {what}: {t:.4f} ms per batch (median of 20), finite, on "
+            f"{model.device}, no fm_pairwise launch | {memory(model)} on {smi}")
+        del model, feats
+        torch.cuda.empty_cache()
+    say(f"[recsys] phase took {time.perf_counter() - t_phase:.1f} s; launches on the "
+        f"counted runs {total}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--queries", type=int, default=13_500_000,
@@ -318,6 +559,14 @@ def main() -> int:
 
     dev = torch.device(DEVICE)
 
+    t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phase):
+        now = time.perf_counter()
+        say(f"[time] phase {phase}: {now - t_lap[0]:.1f} s ({now - t_start:.1f} s in all)")
+        t_lap[0] = now
+
     # ---- 1. card and versions ---------------------------------------------
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
@@ -325,6 +574,8 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[-1]
     say(f"[card] {card} x{torch.cuda.device_count()} | nvidia-smi: {smi}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} | nvcc {nvcc}")
+
+    lap(1)
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -336,7 +587,47 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 say(f"[build] {name}: {line.strip()}")
 
-    # ---- 3. full-width index ------------------------------------------------
+    lap(2)
+
+    results = {}     # each kernel's cases held against its plain version
+
+    def hold(name, run_kernel, run_plain, equal, bytes_needed, reps, case,
+             codec=None, plain_reps=None, ops_needed=0):
+        """Check the kernel against its plain version; time both. Returns
+        the case's record: device ms per launch, ms per wrapper call, plain
+        ms, the bound (the larger of bytes over the memory rate and fp32
+        operations over the fp32 rate) and the largest absolute difference
+        of a float output from the plain version's (0 for the exact ones)."""
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        if not equal(got, want):
+            fail(f"{name} {case}: kernel disagrees with its plain version")
+        err = (float((got.double() - want.double()).abs().max()) if
+               isinstance(got, torch.Tensor) and got.is_floating_point() and got.numel()
+               else 0.0)
+        tag = TRACE_TAGS[name if codec is None else (name, codec)]
+        t_bytes, t_ops = bytes_needed / HBM_BYTES_PER_S, ops_needed / FP32_OPS_PER_S
+        ms, held = kernel_device_ms(torch, run_kernel, tag, 200)
+        c = {"case": case, **({"codec": codec} if codec else {}),
+             "ms": ms, "traced_launches": held,
+             "call_ms": cuda_ms(torch, run_kernel, reps),
+             "plain_ms": cuda_ms(torch, run_plain, plain_reps or max(3, reps // 20)),
+             "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": bytes_needed, "max_abs_err": err}
+        results.setdefault(name, []).append(c)
+        return c
+
+    def timing(c):
+        return (f"device {c['ms']*1e3:.2f} us/launch, call {c['call_ms']*1e3:.2f} us, "
+                f"plain {c['plain_ms']*1e3:.2f} us, bound {c['bound_ms']*1e3:.4f} us")
+
+    # ---- 3. recsys serving --------------------------------------------------
+    counted = {"recsys": recsys_phase(torch, dev, args.seed, smi, hold, reset_counts,
+                                      read_counts)}
+    lap(3)
+
+    # ---- 4. full-width index ------------------------------------------------
     t0 = time.perf_counter()
     queries, scores = make_log(args.queries, args.vocab, args.seed)
     t_log = time.perf_counter() - t0
@@ -390,30 +681,9 @@ def main() -> int:
     pids, plen, _, suf, slen = parse_queries(qidx.dictionary, partials)
     tl, th = qidx.dictionary.locate_prefix(suf, slen)
 
-    # ---- 4. kernels against their plain versions ---------------------------
-    results = {}
+    lap(4)
 
-    def hold(name, run_kernel, run_plain, equal, bytes_needed, reps, case,
-             codec=None, plain_reps=None):
-        """Check the kernel against its plain version; time both. Returns
-        (device ms per launch, ms per wrapper call, plain ms, bound ms)."""
-        got, want = run_kernel(), run_plain()
-        torch.cuda.synchronize()
-        if not equal(got, want):
-            fail(f"{name} {case}: kernel disagrees with its plain version")
-        tag = TRACE_TAGS[name if codec is None else (name, codec)]
-        c = {"case": case, **({"codec": codec} if codec else {}),
-             "ms": kernel_device_ms(torch, run_kernel, tag, 200),
-             "call_ms": cuda_ms(torch, run_kernel, reps),
-             "plain_ms": cuda_ms(torch, run_plain, plain_reps or max(3, reps // 20)),
-             "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3, "bytes": bytes_needed}
-        results.setdefault(name, []).append(c)
-        return c
-
-    def timing(c):
-        return (f"device {c['ms']*1e3:.2f} us/launch, call {c['call_ms']*1e3:.2f} us, "
-                f"plain {c['plain_ms']*1e3:.2f} us, bound {c['bound_ms']*1e3:.4f} us")
-
+    # ---- 5. QAC kernels against their plain versions -----------------------
     # rmq_query: 512 ranges of the minimal array, inverted and empty included
     n = rm.n
     p = torch.tensor(rng.integers(0, n, 512), dtype=torch.int32, device=dev)
@@ -451,7 +721,8 @@ def main() -> int:
                             idx.postings)
         case = f"B={hl.numel()} k={k} trips={trips}"
         c = hold("heap_topk", lambda: ops["heap_topk"].heap_topk(*targs, **kw),
-                 lambda: heap_topk_ref(*targs, **kw), heap_equal, b_heap, 200, case)
+                 lambda: heap_topk_ref(*targs, **kw), heap_equal, b_heap, 200, case,
+                 plain_reps=3)
         say(f"[kernel] heap_topk {case}: {timing(c)} ({b_heap} B) | equal")
     # the packed kernel on the same ranges, for both codecs; its plain version
     # decodes with many small PyTorch ops per read, so it runs a few times only
@@ -510,14 +781,16 @@ def main() -> int:
                  lambda: ops["conjunctive_scan_packed"].conjunctive_scan_packed(
                      *pargs, iters=iters),
                  lambda: conjunctive_scan_packed_ref(*pargs, iters=iters),
-                 torch.equal, b_scan, 2000, case, codec, plain_reps=10)
+                 torch.equal, b_scan, 2000, case, codec, plain_reps=3)
         say(f"[kernel] conjunctive_scan_packed[{codec}] {case}: {timing(c)} "
             f"({b_scan} B) | equal")
 
-    # ---- 5. the main path ---------------------------------------------------
+    lap(5)
+
+    # ---- 6. the QAC path ----------------------------------------------------
     # the per-request-k batch: the first 64 queries, each with its own k. The
-    # plain route's tile loop takes minutes per k-bucket at this width, so it
-    # serves only the main batch; the per-k answers are held against it by
+    # plain route serves only the first PLAIN_QUERIES of the main batch; the
+    # per-k answers are held against the kernel route's main answers by
     # prefix (top-k is prefix-stable) and in full against the brute force
     kmix = np.random.default_rng(1).choice([10, 10, 10, 3, 128], 64)
     kinputs = tuple(x[:64] for x in (pids, plen, suf, slen))
@@ -526,8 +799,11 @@ def main() -> int:
            "ef": QACFrontend(qidx, postings_codec="ef"),
            "bitpack": QACFrontend(qidx_bp, postings_codec="bitpack")}
     inputs = (pids, plen, suf, slen)
-    answers, per_k, per_query_us, counted = {}, {}, {}, {}
-    # phase 4 loaded every kernel and warmed PyTorch's own ones, so each
+    # the plain route's tile loop runs to its 4,096-tile cap at ~23-32 ms a
+    # tile, so it serves the first PLAIN_QUERIES of the batch only
+    served = {route: args.batch for route in fes} | {"plain": min(PLAIN_QUERIES, args.batch)}
+    answers, per_k, per_query_us = {}, {}, {}
+    # phase 5 loaded every kernel and warmed PyTorch's own ones, so each
     # route's first call is timed as it comes. Each route's main-batch run is
     # counted on its own: the counts go to 0 just before it, are read just
     # after, and the per-request-k batch that follows is not counted
@@ -535,8 +811,8 @@ def main() -> int:
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        answers[route] = fe.complete(*inputs)
-        per_query_us[route] = (time.perf_counter() - t0) / args.batch * 1e6
+        answers[route] = fe.complete(*(x[:served[route]] for x in inputs))
+        per_query_us[route] = (time.perf_counter() - t0) / served[route] * 1e6
         counted[route] = read_counts()
         t_k = ""
         if route != "plain":
@@ -545,22 +821,20 @@ def main() -> int:
             t_k = f" | per-request-k batch of 64: {time.perf_counter() - t0:.2f} s"
         say(f"[path] {route}: single={fe.describe_route('single')} "
             f"multi={fe.describe_route('multi')} | {per_query_us[route]:.1f} us/query "
-            f"at B={args.batch} on {smi}{t_k} | stats {fe.stats} | launches on the "
+            f"at B={served[route]} on {smi}{t_k} | stats {fe.stats} | launches on the "
             f"main batch {counted[route]}")
     for route, counts in counted.items():
         for name, c in counts.items():
             if bool(c) != (name in ROUTE_KERNELS[route]):
                 fail(f"route {route} launched {name} {c} times: it launches exactly "
                      f"{ROUTE_KERNELS[route]} ({counts})")
-    launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
-    say(f"[path] kernel launches on the main batch, each from its routes' runs: {launches}")
     a, a_k = answers["kernels"], per_k["kernels"]
     if a.shape != (args.batch, 10) or a.dtype != np.int32 or a_k.shape != (64, int(kmix.max())):
         fail(f"unexpected answer shapes {a.shape} {a.dtype} {a_k.shape}")
-    for route in ("kernels", "per_pop_rmq"):
-        if not np.array_equal(answers[route], answers["plain"]):
-            fail(f"route {route} disagrees with the plain route")
-    for route in ("ef", "bitpack"):
+    if not np.array_equal(answers["plain"], a[:served["plain"]]):
+        fail(f"the plain route disagrees with the kernel route on the first "
+             f"{served['plain']} queries")
+    for route in ("per_pop_rmq", "ef", "bitpack"):
         if not np.array_equal(answers[route], a):
             fail(f"route {route} disagrees with the raw kernel route")
     for route in ("per_pop_rmq", "ef", "bitpack"):
@@ -568,7 +842,7 @@ def main() -> int:
             fail(f"per-request-k answers of route {route} differ from the kernel route's")
     for i, ki in enumerate(kmix):
         w = min(int(ki), 10)
-        if not np.array_equal(a_k[i, :w], answers["plain"][i, :w]) or (a_k[i, ki:] != INF).any():
+        if not np.array_equal(a_k[i, :w], a[i, :w]) or (a_k[i, ki:] != INF).any():
             fail(f"per-request-k row {i} (k={ki}) is not a prefix-stable top-k")
     if not ((a >= 0) & ((a < comps.n) | (a == INF))).all():
         fail("answers hold docids outside the index")
@@ -582,10 +856,11 @@ def main() -> int:
         want = brute_force(host, int(plen_h[i]), pids_h[i], int(tl_h[i]), int(th_h[i]), ki, cap)
         if not np.array_equal(got, want):
             fail(f"query {partials[i]!r} k={ki}: {got} != brute force {want}")
-    say(f"[path] {len(fes)} routes bit-identical on {args.batch} queries (the packed "
-        f"ones held against the raw kernel route); a per-request-k batch of 64 (k up "
-        f"to {int(kmix.max())}) equal on the four kernel routes and prefix-equal to "
-        f"the plain route; {len(checks)} answers equal a brute-force host search")
+    say(f"[path] {len(fes) - 1} kernel routes bit-identical on {args.batch} queries, "
+        f"the plain route on the first {served['plain']} of them; a per-request-k batch "
+        f"of 64 (k up to {int(kmix.max())}) equal on the four kernel routes and "
+        f"prefix-equal to the kernel route's main answers; {len(checks)} answers equal "
+        f"a brute-force host search")
 
     # where the time goes: one traced call of the same batch per route
     from torch.profiler import ProfilerActivity, profile
@@ -593,25 +868,27 @@ def main() -> int:
     for route in ("kernels", "ef"):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fes[route].complete(*inputs)
-        dev = sorted(((e.self_device_time_total, e.key, e.count)
-                      for e in prof.key_averages() if e.self_device_time_total > 0),
-                     reverse=True)
-        busy_us = sum(d for d, _, _ in dev)
+        events = device_times(prof)
+        busy_us = sum(d for d, _, _ in events)
         wall_us = per_query_us[route] * args.batch
         share = f"{busy_us / wall_us:.4f}" if busy_us else "not measured"
         say(f"[trace] {route} route B={args.batch}: device busy {busy_us / 1e3:.2f} ms "
             f"of {wall_us / 1e3:.2f} ms untraced wall, busy share {share} on {smi}")
-        for d, key, count in dev[:6]:
+        for d, key, count in events[:6]:
             say(f"[trace]   {d / 1e3:9.2f} ms  {count:7d} x  {key[:90]}")
 
-    # ---- 6. kernels line ----------------------------------------------------
+    lap(6)
+
+    # ---- 7. kernels line ----------------------------------------------------
+    launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
+    say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []
     for name, (_, _, src, replaces, routes) in KERNELS.items():
         first = {key: v for key, v in results[name][0].items() if key != "case"}
         line.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[name],
                      "launches_by_route": {r: counted[r][name] for r in routes},
-                     "max_abs_err": 0, **first, "bound_by": "bytes",
+                     **first, "max_abs_err": max(c["max_abs_err"] for c in results[name]),
                      "library_ms": None, "equal": True, "cases": results[name]})
     say(json.dumps({"kernels": line, "card": card, "power": smi}))
     say(nvidia_smi())

@@ -137,16 +137,30 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def require_cuda_int32(name: str, **tensors) -> None:
-    """Validate what a kernel takes: contiguous int32 tensors on one card."""
+def _require_cuda(name: str, dtypes, tensors) -> None:
     dev = None
     for k, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {k} must be a CUDA tensor")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: {k} must be int32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: {k} must be {' or '.join(map(str, dtypes))}, "
+                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: tensors span devices {dev} and {t.device}")
         dev = t.device
+
+
+def require_cuda_int32(name: str, **tensors) -> None:
+    """Validate what a kernel takes: contiguous int32 tensors on one card."""
+    _require_cuda(name, (torch.int32,), tensors)
+
+
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the launchers' dtype argument
+
+
+def require_cuda_float(name: str, **tensors) -> None:
+    """Validate what a float kernel takes: contiguous fp32 or bf16 tensors
+    on one card (``FLOAT_CODES`` gives the code each launcher takes)."""
+    _require_cuda(name, tuple(FLOAT_CODES), tensors)

@@ -1,0 +1,21 @@
+"""Arch registry of the ported architectures: ``get_arch(<id>)``. One
+module per architecture, with the JAX package's configs' values."""
+from __future__ import annotations
+
+from .base import Cell  # noqa: F401
+from .bst import ARCH as _bst
+from .din import ARCH as _din
+from .fm import ARCH as _fm
+from .mind import ARCH as _mind
+
+ARCHS = {a.arch_id: a for a in [_mind, _bst, _din, _fm]}
+
+
+def get_arch(arch_id: str):
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch '{arch_id}'; have {sorted(ARCHS)}")
+    return ARCHS[arch_id]
+
+
+def list_archs():
+    return sorted(ARCHS)

@@ -10,6 +10,12 @@ builder. Keys are ``"<component>.<field>"`` for arrays and meta alike, e.g.
 ``"index.packed.words"`` (and ``.base``, ``.meta``, ``.wordoff``) among the
 arrays, ``"index.packed.n_post"`` and ``"index.packed.codec"`` (a string)
 among the meta; an index given none of them gets ``packed=None``.
+
+``recsys_params_from_arrays`` does the same for a recsys model: the JAX
+model's parameters as numpy arrays, keyed by their tree path joined with
+``.`` (``"tables"``, ``"mlp.0.w"``, ``"blocks.0.ln1"``), become the port
+model's parameters; MIND also takes ``"routing_init"``, the routing-logit
+init the JAX package draws inside ``interests``.
 """
 from __future__ import annotations
 
@@ -19,12 +25,14 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
+from .configs.recsys_common import MODEL_CLS
 from .core.builder import QACIndex
 from .core.codecs import PackedPostings
 from .core.completions import Completions
 from .core.dictionary import TermDictionary
 from .core.inverted_index import InvertedIndex
 from .core.rmq import RangeMin
+from .models.recsys import RecsysConfig
 
 COMPONENTS = {"dictionary": TermDictionary, "completions": Completions,
               "index": InvertedIndex, "rmq_docids": RangeMin,
@@ -63,3 +71,23 @@ def qac_index_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         raise KeyError(f"unknown index fields {sorted(extra)}")
     return QACIndex(**parts, k_default=int(meta["k_default"]))
 
+
+
+def recsys_params_from_arrays(cfg: RecsysConfig, arrays: dict[str, np.ndarray],
+                              device=None):
+    """The recsys model of ``cfg`` on ``device`` (default: the card) holding
+    ``arrays``; every parameter and buffer must be given exactly once, each
+    of its shape."""
+    model = MODEL_CLS[cfg.kind](cfg, device=device)
+    want = model.state_dict()
+    missing, extra = sorted(set(want) - set(arrays)), sorted(set(arrays) - set(want))
+    if missing or extra:
+        raise KeyError(f"recsys fields: missing {missing}, unknown {extra}")
+    state = {}
+    for key, t in want.items():
+        a = np.asarray(arrays[key])
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{key}: shape {a.shape}, the model needs {tuple(t.shape)}")
+        state[key] = torch.tensor(a, dtype=t.dtype)
+    model.load_state_dict(state)
+    return model

@@ -7,7 +7,9 @@ the plain versions are the oracle, and they are held against the JAX
 package by the CPU tests. The packed kernels run for both codecs: the
 "ef" postings of ``build_qac_index`` and a "bitpack" packing of the same
 lists. Integer outputs must be bit-identical; RMQ ``pos`` is compared
-wherever ``val < INF``.
+wherever ``val < INF``. ``fm_pairwise`` is float: rtol 1e-5 and atol 1e-6,
+the atol scaled by the two sums the sum-square identity subtracts (as in
+``test_torch_fm_pairwise.py``), unscaled at the models' embedding scale.
 """
 import dataclasses
 
@@ -16,7 +18,11 @@ import pytest
 import torch
 
 from repro_torch.core import build_qac_index, parse_queries
+from repro_torch.configs import get_arch
 from repro_torch.core.codecs import pack_postings
+from repro_torch.data import recsys_batch
+from repro_torch.kernels.fm_pairwise import ops as fm_ops
+from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_ref
 from repro_torch.kernels.heap_topk import ops as heap_ops
 from repro_torch.kernels.heap_topk.ref import heap_topk_ref
 from repro_torch.kernels.intersect import ops as isect_ops
@@ -24,6 +30,7 @@ from repro_torch.kernels.intersect.ref import (conjunctive_scan_packed_ref,
                                                conjunctive_scan_ref)
 from repro_torch.kernels.rmq import ops as rmq_ops
 from repro_torch.kernels.rmq.ref import rmq_window_batch
+from repro_torch.models.recsys import FMModel
 from repro_torch.serve import QACFrontend
 from repro_torch.text import SynthLogConfig, generate_query_log
 
@@ -199,3 +206,66 @@ def test_frontend_routes_agree_on_card(built):
         after = (heap_ops.launches, isect_ops.launches,
                  heap_ops.packed_launches, isect_ops.packed_launches)
         assert after[:2] == counts[:2] and all(a > b for a, b in zip(after[2:], counts[2:]))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _assert_fm_close(got, want, e, scaled=True):
+    e = e.double()
+    scale = 1 + (e.sum(1) ** 2 + (e * e).sum(1)).sum(1) if scaled else 1.0
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 1e-5 * want.double().abs() + 1e-6 * scale).all()), float(err.max())
+
+
+@pytest.mark.parametrize("B,F,D,dtype", [(1, 39, 10, torch.float32),
+                                         (300, 39, 10, torch.float32),
+                                         (512, 13, 8, torch.float32),
+                                         (64, 64, 128, torch.float32),
+                                         (256, 39, 16, torch.bfloat16)])
+def test_fm_pairwise_kernel_matches_plain(B, F, D, dtype):
+    _card()
+    rng = np.random.default_rng(B * F + D)
+    for scale in (1.0, 0.02):
+        e = torch.tensor(rng.normal(size=(B, F, D)) * scale, dtype=torch.float32,
+                         device="cuda").to(dtype)
+        before = fm_ops.launches
+        got = fm_ops.fm_pairwise(e)
+        torch.cuda.synchronize()
+        assert fm_ops.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (B,)
+        _assert_fm_close(got, fm_pairwise_ref(e), e.float(), scaled=scale == 1.0)
+
+
+def test_fm_pairwise_kernel_refuses_what_it_does_not_take():
+    _card()
+    before = fm_ops.launches
+    empty = fm_ops.fm_pairwise(torch.zeros((0, 39, 10), device="cuda"))
+    assert empty.shape == (0,) and fm_ops.launches == before
+    e = torch.randn((16, 10, 39), device="cuda")
+    for bad in (e.transpose(1, 2), e.double(), torch.randn((16, 65, 8), device="cuda"),
+                torch.randn((16, 8, 129), device="cuda"), e[0],
+                e.clone().requires_grad_()):
+        with pytest.raises(ValueError):
+            fm_ops.fm_pairwise(bad)
+    assert fm_ops.launches == before
+    got = fm_ops.fm_pairwise(e.transpose(1, 2).contiguous())
+    _assert_fm_close(got, fm_pairwise_ref(e.transpose(1, 2)), e.transpose(1, 2))
+
+
+def test_fm_model_launches_the_kernel_once_per_forward():
+    _card()
+    cfg = get_arch("fm").smoke_cfg
+    model = FMModel(cfg, device="cuda")
+    feats, _ = recsys_batch(cfg, 300, np.random.default_rng(0))
+    feats = {k: torch.from_numpy(v).cuda() for k, v in feats.items()}
+    with torch.inference_mode():
+        before = fm_ops.launches
+        routed = model(feats)
+        assert fm_ops.launches == before + 1
+        model.use_kernel = False
+        plain = model(feats)
+        assert fm_ops.launches == before + 1
+    torch.testing.assert_close(routed, plain, rtol=1e-5, atol=1e-6)

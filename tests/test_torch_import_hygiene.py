@@ -62,13 +62,22 @@ def test_entry_points_without_device_need_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from repro_torch.backend import resolve_device
-    from repro_torch.convert import qac_index_from_arrays
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_common import MODEL_CLS
+    from repro_torch.convert import qac_index_from_arrays, recsys_params_from_arrays
     from repro_torch.core import build_qac_index
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_qac_index(["a b", "a c"], [1.0, 2.0])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         qac_index_from_arrays({}, {"k_default": 10})
+    for kind, cls in MODEL_CLS.items():
+        cfg = get_arch(kind).smoke_cfg
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            recsys_params_from_arrays(cfg, {})
+        assert cls(cfg, device="cpu").device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
     qidx, _, _ = build_qac_index(["a b", "a c"], [1.0, 2.0], device="cpu")
     assert qidx.device.type == "cpu"
