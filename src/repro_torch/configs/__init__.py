@@ -6,9 +6,12 @@ from .base import Cell  # noqa: F401
 from .bst import ARCH as _bst
 from .din import ARCH as _din
 from .fm import ARCH as _fm
+from .gemma2_2b import ARCH as _gemma2
 from .mind import ARCH as _mind
+from .qwen3_14b import ARCH as _qwen3
+from .smollm_360m import ARCH as _smollm
 
-ARCHS = {a.arch_id: a for a in [_mind, _bst, _din, _fm]}
+ARCHS = {a.arch_id: a for a in [_smollm, _qwen3, _gemma2, _mind, _bst, _din, _fm]}
 
 
 def get_arch(arch_id: str):

@@ -16,6 +16,11 @@ model's parameters as numpy arrays, keyed by their tree path joined with
 ``.`` (``"tables"``, ``"mlp.0.w"``, ``"blocks.0.ln1"``), become the port
 model's parameters; MIND also takes ``"routing_init"``, the routing-logit
 init the JAX package draws inside ``interests``.
+
+``lm_params_from_arrays`` does the same for a transformer LM: ``"embed"``,
+``"final_norm"``, ``"lm_head"`` (untied embeddings only) and the stacked
+per-layer weights ``"layers.wq"`` etc. of shape ``(n_steps,
+layers_per_step, ...)`` become a ``TransformerLM``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from .core.dictionary import TermDictionary
 from .core.inverted_index import InvertedIndex
 from .core.rmq import RangeMin
 from .models.recsys import RecsysConfig
+from .models.transformer import TransformerConfig, TransformerLM
 
 COMPONENTS = {"dictionary": TermDictionary, "completions": Completions,
               "index": InvertedIndex, "rmq_docids": RangeMin,
@@ -73,16 +79,13 @@ def qac_index_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
 
 
 
-def recsys_params_from_arrays(cfg: RecsysConfig, arrays: dict[str, np.ndarray],
-                              device=None):
-    """The recsys model of ``cfg`` on ``device`` (default: the card) holding
-    ``arrays``; every parameter and buffer must be given exactly once, each
-    of its shape."""
-    model = MODEL_CLS[cfg.kind](cfg, device=device)
+def _load_arrays(model: torch.nn.Module, arrays: dict[str, np.ndarray], what: str):
+    """Load ``arrays`` into ``model``: every parameter and buffer exactly
+    once, each of its shape, cast to its dtype."""
     want = model.state_dict()
     missing, extra = sorted(set(want) - set(arrays)), sorted(set(arrays) - set(want))
     if missing or extra:
-        raise KeyError(f"recsys fields: missing {missing}, unknown {extra}")
+        raise KeyError(f"{what} fields: missing {missing}, unknown {extra}")
     state = {}
     for key, t in want.items():
         a = np.asarray(arrays[key])
@@ -91,3 +94,19 @@ def recsys_params_from_arrays(cfg: RecsysConfig, arrays: dict[str, np.ndarray],
         state[key] = torch.tensor(a, dtype=t.dtype)
     model.load_state_dict(state)
     return model
+
+
+def recsys_params_from_arrays(cfg: RecsysConfig, arrays: dict[str, np.ndarray],
+                              device=None):
+    """The recsys model of ``cfg`` on ``device`` (default: the card) holding
+    ``arrays``; every parameter and buffer must be given exactly once, each
+    of its shape."""
+    return _load_arrays(MODEL_CLS[cfg.kind](cfg, device=device), arrays, "recsys")
+
+
+def lm_params_from_arrays(arrays: dict[str, np.ndarray], cfg: TransformerConfig,
+                          device=None) -> TransformerLM:
+    """The ``TransformerLM`` of ``cfg`` on ``device`` (default: the card)
+    holding the JAX parameters ``arrays``, keyed by tree path joined with
+    ``.``; every key must be used exactly once, each of its shape."""
+    return _load_arrays(TransformerLM(cfg, device=device), arrays, "lm")

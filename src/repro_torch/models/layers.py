@@ -1,13 +1,24 @@
-"""Shared neural layers of the JAX package's ``models/layers.py``: what the
-recsys models need (``rms_norm``, ``dense_init``, ``embed_init``).
+"""Shared neural layers of the JAX package's ``models/layers.py``: norms,
+RoPE, gated activations and initialisers, plus ``clamp_rows``, the row index
+of JAX's numpy-style gather written out.
 
 The initialisers draw from a ``torch.Generator``; the JAX package draws from
 ``jax.random`` keys, so the same seed gives other values. Parity with the
-JAX package goes through ``convert.recsys_params_from_arrays``.
+JAX package goes through ``convert.recsys_params_from_arrays`` and
+``convert.lm_params_from_arrays``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def clamp_rows(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """int64 row index of JAX's numpy-style indexing: a negative id wraps
+    once, then the index clamps to [0, n_rows-1] (torch would raise, on the
+    card by a device-side assert)."""
+    i = ids.long()
+    return torch.where(i < 0, i + n_rows, i).clamp(0, n_rows - 1)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -18,6 +29,34 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = (x * x).mean(-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """fp32 [head_dim / 2] inverse frequencies."""
+    half = head_dim // 2
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i * 2 / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding in the half-split form (``x1, x2 = split(x, 2, -1)``,
+    not interleaved): x [..., S, D] with positions [..., S] (broadcast), or
+    x [..., D] with positions [...]. Angles in fp32; returned in x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions.float()[..., None] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def gated_act(gate: torch.Tensor, up: torch.Tensor, kind: str) -> torch.Tensor:
+    """``swiglu``: silu(gate) * up; ``geglu``: tanh-approximate gelu(gate) * up
+    (JAX's ``gelu(approximate=True)``)."""
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    raise ValueError(kind)
 
 
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0,

@@ -34,7 +34,7 @@ from torch import nn
 from ..backend import default_use_kernel, resolve_device
 from ..kernels.fm_pairwise import ops as fm_ops
 from ..kernels.fm_pairwise.ref import fm_pairwise_ref
-from .layers import dense_init, embed_init, rms_norm
+from .layers import clamp_rows, dense_init, embed_init, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +55,6 @@ class RecsysConfig:
     capsule_iters: int = 3         # mind
     dtype: torch.dtype = torch.float32
     use_kernel: Optional[bool] = None   # fm_pairwise kernel; None: on CUDA
-
-
-def clamp_rows(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """int64 row index of JAX's numpy-style indexing: a negative id wraps
-    once, then the index clamps to [0, n_rows-1]."""
-    i = ids.long()
-    return torch.where(i < 0, i + n_rows, i).clamp(0, n_rows - 1)
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,305 @@
+"""Decoder-only transformer: the dense serving path of the JAX package's
+``models/transformer.py``.
+
+One config expresses llama-style GQA (smollm), qk-norm GQA (qwen3) and
+local/global alternating layers with softcaps and sandwich norms (gemma2).
+A MoE config raises: the expert path runs no kernel and is a later slice.
+
+``TransformerLM`` is an ``nn.Module`` built on ``device`` (default: the
+card) from a ``torch.Generator`` seeded with ``seed``; the values differ
+from those ``jax.random`` draws, and ``convert.lm_params_from_arrays``
+carries JAX parameters across. The parameters keep the JAX tree's names and
+layouts: ``embed`` [V, d], ``final_norm`` [d], ``lm_head`` [d, V] when the
+embeddings are not tied, and each per-layer weight stacked as
+``layers.<name>`` [n_steps, layers_per_step, ...], so that layer
+``l = step * layers_per_step + i`` has the window ``window_of(i)`` (gemma2's
+local layer is the first of each pair).
+
+Every attention goes through ``kernels/flash_attention`` (``use_flash=None``:
+the CUDA kernel on the card, the plain version on the CPU): ``forward`` with
+the causal mask and each layer's window, ``decode_step`` with one query row
+against the cache and ``kv_len``. This slice serves only: ``forward``,
+``init_cache`` and ``decode_step`` run under ``torch.inference_mode()``.
+
+Hazards written out:
+  * The token gather clamps as JAX's ``embed[tokens]`` does (a negative id
+    wraps once, then the index clamps): torch would raise, on the card by a
+    device-side assert.
+  * ``decode_step`` writes the new K and V into the cache tensors in place
+    (JAX's ``.at[].set`` makes a new array): a cache passed to it must not
+    be used again; use the cache it returns.
+  * Decode passes ``window=0`` to the kernel for every layer: a local
+    layer's ring of ``Sc = min(window, max_len)`` rows, written at
+    ``pos % Sc`` and read up to ``min(pos + 1, Sc)``, carries the window.
+    RoPE positions stay absolute.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from ..backend import resolve_device
+from ..kernels.flash_attention import ops as fa_ops
+from .layers import apply_rope, clamp_rows, dense_init, embed_init, gated_act, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    shared_d_ff: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    act: str = "swiglu"
+    qk_norm: bool = False
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    window: int = 0                  # local-layer sliding window (gemma2: 4096)
+    layer_pattern: str = "global"    # "global" | "local_global"
+    post_norms: bool = False         # gemma2 sandwich norms
+    embed_scale: bool = False        # gemma2 sqrt(d) embedding scale
+    tie_embeddings: bool = True
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    moe: Optional[MoESettings] = None
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.bfloat16
+    use_flash: Optional[bool] = None  # flash_attention kernel; None: on CUDA
+    # The JAX config's training and distribution switches. remat only trades
+    # memory for recompute in a backward, so it changes nothing here; the
+    # MoE sharding switches raise when set, as a MoE config does.
+    remat: bool = True
+    moe_shard_map: bool = False
+    moe_fsdp: bool = False
+    moe_psum_bf16: bool = False
+
+    @property
+    def layers_per_step(self) -> int:
+        return 2 if self.layer_pattern == "local_global" else 1
+
+    @property
+    def n_steps(self) -> int:
+        assert self.n_layers % self.layers_per_step == 0
+        return self.n_layers // self.layers_per_step
+
+    def window_of(self, pos_in_step: int) -> int:
+        if self.layer_pattern == "local_global":
+            return self.window if pos_in_step == 0 else 0
+        return self.window
+
+    def param_count(self) -> int:
+        c = self
+        attn = c.d_model * c.head_dim * (c.n_heads * 2 + c.n_kv_heads * 2)
+        if c.moe:
+            ffn = c.moe.n_experts * 3 * c.d_model * c.moe.d_expert
+            ffn += c.d_model * c.moe.n_experts
+            if c.moe.shared_d_ff:
+                ffn += 3 * c.d_model * c.moe.shared_d_ff + c.d_model
+        else:
+            ffn = 3 * c.d_model * c.d_ff
+        per_layer = attn + ffn + 2 * c.d_model * (2 if c.post_norms else 1)
+        head = 0 if c.tie_embeddings else c.d_model * c.vocab
+        return c.n_layers * per_layer + c.vocab * c.d_model + head + c.d_model
+
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (6·N_active·D convention)."""
+        if not self.moe:
+            return self.param_count()
+        c = self
+        attn = c.d_model * c.head_dim * (c.n_heads * 2 + c.n_kv_heads * 2)
+        ffn = c.moe.top_k * 3 * c.d_model * c.moe.d_expert
+        ffn += c.d_model * c.moe.n_experts
+        if c.moe.shared_d_ff:
+            ffn += 3 * c.d_model * c.moe.shared_d_ff
+        head = 0 if c.tie_embeddings else c.d_model * c.vocab
+        return c.n_layers * (attn + ffn) + c.vocab * c.d_model + head
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's promotion of mixed float dtypes."""
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(t), w.to(t)
+    return x @ w
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0):
+        super().__init__()
+        if cfg.moe:
+            raise NotImplementedError("MoE: a later slice")
+        switches = [f for f in ("moe_shard_map", "moe_fsdp", "moe_psum_bf16") if getattr(cfg, f)]
+        if switches:
+            raise NotImplementedError(f"{switches}: MoE sharding is a later slice")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        c, pd = cfg, cfg.param_dtype
+        H, G, hd, d = c.n_heads, c.n_kv_heads, c.head_dim, c.d_model
+        n = (c.n_steps, c.layers_per_step)
+
+        def dense(d_in, d_out):   # every layer's weight in one draw
+            return nn.Parameter(dense_init(n + (d_in, d_out), g, in_axis=2, dtype=pd))
+
+        def zeros(width):
+            return nn.Parameter(torch.zeros(n + (width,), dtype=pd, device=self.device))
+
+        layers = {"wq": dense(d, H * hd), "wk": dense(d, G * hd), "wv": dense(d, G * hd),
+                  "wo": dense(H * hd, d), "pre_attn": zeros(d), "pre_mlp": zeros(d)}
+        if c.post_norms:
+            layers |= {"post_attn": zeros(d), "post_mlp": zeros(d)}
+        if c.qk_norm:
+            layers |= {"q_norm": zeros(hd), "k_norm": zeros(hd)}
+        layers |= {"w_gate": dense(d, c.d_ff), "w_up": dense(d, c.d_ff),
+                   "w_down": dense(c.d_ff, d)}
+        self.layers = nn.ParameterDict(layers)
+        self.embed = nn.Parameter(embed_init((c.vocab, d), g, dtype=pd))
+        self.final_norm = nn.Parameter(torch.zeros(d, dtype=pd, device=self.device))
+        if not c.tie_embeddings:
+            self.lm_head = nn.Parameter(dense_init((d, c.vocab), g, dtype=pd))
+
+    def _layer(self, step: int, i: int) -> dict[str, torch.Tensor]:
+        return {name: p[step, i] for name, p in self.layers.items()}
+
+    # -- blocks ----------------------------------------------------------------
+    def _attention(self, lp, x, positions, window: int, *, cache=None,
+                   cache_pos=None, kv_len=None):
+        c = self.cfg
+        H, G, hd = c.n_heads, c.n_kv_heads, c.head_dim
+        B, S, _ = x.shape
+        h = rms_norm(x, lp["pre_attn"], c.norm_eps)
+        q = _mm(h, lp["wq"]).reshape(B, S, H, hd)
+        k = _mm(h, lp["wk"]).reshape(B, S, G, hd)
+        v = _mm(h, lp["wv"]).reshape(B, S, G, hd)
+        if c.qk_norm:
+            q = rms_norm(q, lp["q_norm"], c.norm_eps)
+            k = rms_norm(k, lp["k_norm"], c.norm_eps)
+        q = apply_rope(q.transpose(1, 2), positions[:, None, :], c.rope_theta)
+        k = apply_rope(k.transpose(1, 2), positions[:, None, :], c.rope_theta)
+        v = v.transpose(1, 2).contiguous()
+        sm_scale = hd ** -0.5
+        if cache is None:
+            out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                         softcap=c.attn_softcap, sm_scale=sm_scale,
+                                         use_kernel=c.use_flash)
+            new_cache = (k, v)
+        else:
+            ck, cv = cache                                   # [B, G, Sc, hd], in place
+            bidx = torch.arange(B, device=x.device)
+            ck[bidx, :, cache_pos, :] = k[:, :, 0, :]
+            cv[bidx, :, cache_pos, :] = v[:, :, 0, :]
+            out = fa_ops.flash_decode(q[:, :, 0, :], ck, cv, kv_len, window=0,
+                                      softcap=c.attn_softcap, sm_scale=sm_scale,
+                                      use_kernel=c.use_flash)[:, :, None, :]
+            new_cache = (ck, cv)
+        out = _mm(out.transpose(1, 2).reshape(B, S, H * hd), lp["wo"])
+        if c.post_norms:
+            out = rms_norm(out, lp["post_attn"], c.norm_eps)
+        return out, new_cache
+
+    def _dense_mlp(self, lp, x):
+        c = self.cfg
+        h = rms_norm(x, lp["pre_mlp"], c.norm_eps)
+        out = _mm(gated_act(_mm(h, lp["w_gate"]), _mm(h, lp["w_up"]), c.act), lp["w_down"])
+        if c.post_norms:
+            out = rms_norm(out, lp["post_mlp"], c.norm_eps)
+        return out
+
+    def _embed(self, tokens):
+        c = self.cfg
+        x = self.embed[clamp_rows(tokens, c.vocab)].to(c.dtype)
+        if c.embed_scale:
+            x = x * torch.tensor(float(c.d_model)).sqrt().to(c.dtype)
+        return x
+
+    def _trunk(self, tokens, *, return_cache: bool = False):
+        """tokens int32[B, S] -> (the last layer's output [B, S, d] before the
+        final norm, and per layer of a step (k, v) [n_steps, B, G, S, hd]
+        when ``return_cache``)."""
+        c = self.cfg
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        kvs = [([], []) for _ in range(c.layers_per_step)]
+        for step in range(c.n_steps):
+            for i in range(c.layers_per_step):
+                lp = self._layer(step, i)
+                attn, (k, v) = self._attention(lp, x, positions, c.window_of(i))
+                x2 = x + attn
+                x = x2 + self._dense_mlp(lp, x2)
+                if return_cache:
+                    kvs[i][0].append(k)
+                    kvs[i][1].append(v)
+        cache = (tuple((torch.stack(ks), torch.stack(vs)) for ks, vs in kvs)
+                 if return_cache else None)
+        return x, cache
+
+    def _head(self, x):
+        """Final norm, the (tied) head in ``dtype`` and the final softcap:
+        [..., d] -> fp32 logits [..., V]."""
+        c = self.cfg
+        x = rms_norm(x, self.final_norm, c.norm_eps)
+        w = self.embed.t() if c.tie_embeddings else self.lm_head
+        logits = _mm(x, w.to(c.dtype)).float()
+        if c.final_softcap:
+            logits = c.final_softcap * torch.tanh(logits / c.final_softcap)
+        return logits
+
+    # -- full forward (prefill) ------------------------------------------------
+    @torch.inference_mode()
+    def forward(self, tokens, *, return_cache: bool = False):
+        """tokens int32[B, S] -> (logits f32[B, S, V], aux 0, cache|None)."""
+        x, cache = self._trunk(tokens, return_cache=return_cache)
+        return self._head(x), torch.zeros((), dtype=torch.float32), cache
+
+    # -- KV-cache serving --------------------------------------------------------
+    @torch.inference_mode()
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """{"pos": int32[B], "k"/"v": per layer of a step [n_steps, B, G, Sc,
+        hd] in ``dtype``, Sc = min(window, max_len) on a local layer}."""
+        c = self.cfg
+        ks, vs = [], []
+        for i in range(c.layers_per_step):
+            w = c.window_of(i)
+            Sc = min(w, max_len) if w > 0 else max_len
+            shape = (c.n_steps, batch, c.n_kv_heads, Sc, c.head_dim)
+            ks.append(torch.zeros(shape, dtype=c.dtype, device=self.device))
+            vs.append(torch.zeros(shape, dtype=c.dtype, device=self.device))
+        return {"pos": torch.zeros(batch, dtype=torch.int32, device=self.device),
+                "k": tuple(ks), "v": tuple(vs)}
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, tokens):
+        """One token per sequence: tokens int32[B] -> (logits f32[B, V], the
+        new cache). Writes K and V into ``cache``'s tensors in place: use the
+        returned cache, not the one passed in."""
+        c = self.cfg
+        pos = cache["pos"]
+        x = self._embed(tokens)[:, None, :]
+        positions = pos[:, None]
+        for step in range(c.n_steps):
+            for i in range(c.layers_per_step):
+                lp = self._layer(step, i)
+                ck, cv = cache["k"][i][step], cache["v"][i][step]
+                Sc = ck.shape[2]
+                attn, _ = self._attention(
+                    lp, x, positions, 0, cache=(ck, cv), cache_pos=(pos % Sc).long(),
+                    kv_len=torch.clamp(pos + 1, max=Sc))
+                x2 = x + attn
+                x = x2 + self._dense_mlp(lp, x2)
+        new_cache = {"pos": pos + 1, "k": cache["k"], "v": cache["v"]}
+        return self._head(x[:, 0, :]), new_cache

@@ -10,6 +10,9 @@ lists. Integer outputs must be bit-identical; RMQ ``pos`` is compared
 wherever ``val < INF``. ``fm_pairwise`` is float: rtol 1e-5 and atol 1e-6,
 the atol scaled by the two sums the sum-square identity subtracts (as in
 ``test_torch_fm_pairwise.py``), unscaled at the models' embedding scale.
+``flash_attention`` is held to its plain version with the tolerances of
+``tests/test_kernels.py``: rtol and atol 2e-5 in fp32, 2e-2 in bf16; the LM
+at smoke width (fp32) to the plain route within rtol and atol 1e-4.
 """
 import dataclasses
 
@@ -21,6 +24,7 @@ from repro_torch.core import build_qac_index, parse_queries
 from repro_torch.configs import get_arch
 from repro_torch.core.codecs import pack_postings
 from repro_torch.data import recsys_batch
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fm_pairwise import ops as fm_ops
 from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_ref
 from repro_torch.kernels.heap_topk import ops as heap_ops
@@ -32,6 +36,7 @@ from repro_torch.kernels.rmq import ops as rmq_ops
 from repro_torch.kernels.rmq.ref import rmq_window_batch
 from repro_torch.models.recsys import FMModel
 from repro_torch.serve import QACFrontend
+from repro_torch.serve.lm import greedy_generate, prefill_step
 from repro_torch.text import SynthLogConfig, generate_query_log
 
 INF = 2**31 - 1
@@ -269,3 +274,91 @@ def test_fm_model_launches_the_kernel_once_per_forward():
         plain = model(feats)
         assert fm_ops.launches == before + 1
     torch.testing.assert_close(routed, plain, rtol=1e-5, atol=1e-6)
+
+
+FA_CASES = [  # B, H, G, Sq, Skv, D, causal, window, softcap, kv_len
+    (2, 4, 2, 256, 256, 32, True, 0, 0.0, None),            # GQA
+    (1, 4, 1, 384, 384, 64, True, 128, 0.0, None),          # MQA + window
+    (1, 2, 2, 256, 256, 128, True, 0, 50.0, None),          # softcap
+    (1, 8, 4, 300, 300, 256, True, 100, 50.0, None),        # gemma2's heads, ragged
+    (2, 4, 4, 130, 130, 64, False, 0, 0.0, None),           # bidirectional
+    (3, 8, 4, 1, 700, 256, True, 0, 50.0, (700, 1, 333)),   # decode, kv_len
+    (2, 8, 4, 1, 4096, 128, True, 0, 0.0, (4096, 2049)),    # decode, long cache
+    (2, 15, 5, 37, 211, 64, True, 50, 0.0, (150, 211)),     # offset, window, kv_len
+    (2, 4, 2, 64, 40, 32, True, 0, 0.0, None),              # Sq > Skv: rows of 0
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_kernel_matches_plain(case, dtype):
+    _card()
+    B, H, G, Sq, Skv, D, causal, window, softcap, kv_len = case
+    rng = np.random.default_rng(Sq * 7 + Skv + D)
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device="cuda").to(dtype)
+               for s in ((B, H, Sq, D), (B, G, Skv, D), (B, G, Skv, D)))
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ops.flash_attention(q, k, v, kl, use_kernel=False, **kw)
+    assert fa_ops.launches == before + 1 and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if Sq == 1:
+        dec = fa_ops.flash_decode(q[:, :, 0], k, v, kl, softcap=softcap)
+        torch.testing.assert_close(dec, got[:, :, 0], rtol=0, atol=0)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    _card()
+    q = torch.randn((1, 4, 64, 64), device="cuda")
+    k = torch.randn((1, 2, 64, 64), device="cuda")
+    before = fa_ops.launches
+    bad = [(q[..., :48].contiguous(), k[..., :48].contiguous(), None),   # D = 48
+           (q, k.to(torch.bfloat16), None),                              # mixed dtypes
+           (q.transpose(2, 3), k, None),                                 # not contiguous
+           (q.double(), k.double(), None),
+           (q[:, :3].contiguous(), k, None),                             # H % G
+           (q, k, torch.tensor([64], device="cuda")),                    # int64 kv_len
+           (q, k, torch.tensor([64, 64], dtype=torch.int32, device="cuda")),
+           (q.clone().requires_grad_(), k, None)]
+    for qq, kk, kl in bad:
+        with pytest.raises(ValueError):
+            fa_ops.flash_attention(qq, kk, kk, kl)
+    assert fa_ops.launches == before
+
+
+def test_lm_smoke_width_kernel_route_matches_plain_route():
+    """gemma2-2b at smoke width (fp32) on the card: forward, prefill, 20
+    decode steps (the 16-token local ring wraps) and greedy generation
+    through the kernel and the plain route, one launch per layer per call."""
+    _card()
+    arch = get_arch("gemma2-2b")
+    model = arch.smoke_model(device="cuda")
+    n_layers = model.cfg.n_layers
+    toks = torch.tensor(np.random.default_rng(0).integers(0, model.cfg.vocab, (2, 40)),
+                        dtype=torch.int32, device="cuda")
+    routes = {}
+    for use_flash in (None, False):
+        model.cfg = dataclasses.replace(arch.smoke_cfg, use_flash=use_flash)
+        want = 0 if use_flash is False else n_layers
+        before = fa_ops.launches
+        logits, _, _ = model(toks)
+        assert fa_ops.launches == before + want
+        last = prefill_step(model, toks)
+        assert fa_ops.launches == before + 2 * want
+        cache, steps = model.init_cache(2, 64), []
+        for t in range(20):
+            step_logits, cache = model.decode_step(cache, toks[:, t])
+            steps.append(step_logits)
+        torch.cuda.synchronize()
+        assert fa_ops.launches == before + 22 * want
+        routes[use_flash] = (logits, last, torch.stack(steps),
+                             greedy_generate(model, toks[:, :8], 8, 32))
+    for got, plain in zip(routes[None][:3], routes[False][:3]):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    assert torch.equal(routes[None][3], routes[False][3])

@@ -27,6 +27,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     names = _modules()
     assert "repro_torch.serve.frontend" in names and len(names) > 20
+    assert {"repro_torch.models.transformer", "repro_torch.serve.lm",
+            "repro_torch.kernels.flash_attention.ops", "repro_torch.data.lm",
+            "repro_torch.configs.gemma2_2b"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -64,8 +67,10 @@ def test_entry_points_without_device_need_a_card():
     from repro_torch.backend import resolve_device
     from repro_torch.configs import get_arch
     from repro_torch.configs.recsys_common import MODEL_CLS
-    from repro_torch.convert import qac_index_from_arrays, recsys_params_from_arrays
+    from repro_torch.convert import (lm_params_from_arrays, qac_index_from_arrays,
+                                     recsys_params_from_arrays)
     from repro_torch.core import build_qac_index
+    from repro_torch.models.transformer import TransformerLM
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_qac_index(["a b", "a c"], [1.0, 2.0])
@@ -78,6 +83,12 @@ def test_entry_points_without_device_need_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             recsys_params_from_arrays(cfg, {})
         assert cls(cfg, device="cpu").device.type == "cpu"
+    cfg = get_arch("gemma2-2b").smoke_cfg
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_params_from_arrays({}, cfg)
+    assert TransformerLM(cfg, device="cpu").device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
     qidx, _, _ = build_qac_index(["a b", "a c"], [1.0, 2.0], device="cpu")
     assert qidx.device.type == "cpu"
