@@ -6,7 +6,8 @@
 Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
   2. the build of every CUDA kernel from ``src/repro_torch/csrc``, one
-     ``nvcc`` per source, all at once;
+     ``nvcc`` per source, all at once, with the ``ptxas -v`` report of every
+     flash_attention instantiation (a spill in a bf16 one fails);
   3. the recsys path at the full widths of the repo's configs: each model at
      smoke width on the card against the CPU; FM (39 fields x 1M rows x 10)
      at B = 512, 262,144 and 1,048,576 through the fm_pairwise kernel and the
@@ -21,15 +22,16 @@ Phases, each printing its lines before the next starts:
      from ``TokenStream.synthetic``: the flash_attention kernel against its
      plain version at the path's shapes (prefill on a global and a local
      layer, decode against a 32,768-token cache and a local ring, fp32,
-     ragged, and the head shapes of smollm-360m and qwen3-14b with SDPA's
-     time beside them); in fp32 (no TF32) ``prefill_step`` at B=1, S=32,768
-     and 4 ``decode_step``s at B=2 against a filled 32,768-token cache
-     through the kernel and the plain route (logits within rtol and atol
-     1e-3); in bf16 the median ms of 3 ``prefill_step``s at B=1, S=32,768, 32
-     ``decode_step``s at B=16 against a 32,768-token cache, one step held
-     against the plain route, ``greedy_generate`` against the plain route's
-     tokens, one traced call of each step, peak device memory; one
-     flash_attention launch per layer per call, none on the plain route;
+     ragged, and the head shapes of smollm-360m and qwen3-14b, and qwen3-14b's
+     decode at B=16 against 32,768 tokens, with SDPA's time beside them); in
+     fp32 (no TF32) ``prefill_step`` at B=1, S=32,768 and 4 ``decode_step``s
+     at B=2 against a filled 32,768-token cache through the kernel and the
+     plain route (logits within rtol and atol 1e-3); in bf16 the median ms
+     of 3 ``prefill_step``s at B=1, S=32,768, 32 ``decode_step``s at B=16
+     against a 32,768-token cache, one step held against the plain route,
+     ``greedy_generate`` against the plain route's tokens, one traced call
+     of each step (flash_attention's device time in it), peak device memory;
+     one flash_attention launch per layer per call, none on the plain route;
   5. a full-width index from the port's own builder at the widths of the
      repo's production configuration (qac-ebay: k=10, MAX_TERMS=8,
      MAX_TERM_CHARS=24, a 1M-term vocabulary, ~10M completions), from a log
@@ -63,6 +65,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -126,7 +129,8 @@ TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               ("conjunctive_scan_packed", "bitpack"):
                   "conjunctive_scan_kernel<qac::PackedLookup<false>",
               "fm_pairwise": "fm_pairwise_kernel<",   # <float> or <__nv_bfloat16>
-              # flash_attention_kernel<D> (fp32) or flash_attention_wmma_kernel<D> (bf16)
+              # flash_attention_kernel<D> (fp32) or flash_attention_tc_kernel<D, decode,
+              # softcap> (bf16: prefill, or split-KV decode with its merge in the launch)
               "flash_attention": "flash_attention_"}
 FM_TOL = dict(rtol=1e-5, atol=1e-6)        # FM logits, and the kernel vs plain
 FLOAT_TOL = dict(rtol=1e-4, atol=1e-5)     # DIN, BST and MIND
@@ -141,7 +145,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # rtol = atol, tests/test_kern
 # heavy rows). Each case measures that control and fails unless the check
 # sees it.
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 1.25e-2}
-FLASH_DROP = 32                            # one kv tile of the bf16 kernel at D = 256
+FLASH_DROP = 32                            # half a kv tile of the bf16 kernels at D = 256
 LM_FP32_TOL = dict(rtol=1e-3, atol=1e-3)   # 26 layers summed in other orders
 # one bf16 decode step, kernel vs plain route: the two attentions differ by
 # a bf16 rounding here and there, which 26 layers of a bf16 residual stream
@@ -160,6 +164,18 @@ def say(*a):
 def fail(msg):
     say(f"FAIL: {msg}")
     sys.exit(1)
+
+
+def demangle(symbol: str) -> str:
+    """A flash_attention instantiation's name, as ptxas reports it, made
+    readable: ``flash_attention_tc_kernel<256, decode, softcap>``."""
+    m = re.search(r"(flash_attention_(?:tc_)?kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?", symbol)
+    if not m:
+        return symbol
+    flags = ("", "") if m.group(3) is None else (
+        ", " + ("decode" if m.group(3) == "1" else "prefill"),
+        ", " + ("softcap" if m.group(4) == "1" else "no softcap"))
+    return f"{m.group(1)}<{m.group(2)}{flags[0]}{flags[1]}>"
 
 
 def nvidia_smi() -> str:
@@ -628,7 +644,7 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
 
     # -- the kernel against its plain version at the path's shapes -------------
     def flash_case(case, B, Hq, Gk, Sq, Skv, Dh, dtype, *, window=0, softcap=0.0,
-                   kv_len=None, sdpa=False, reps=20, plain_reps=3, trace_reps=50):
+                   kv_len=None, sdpa=None, reps=20, plain_reps=3, trace_reps=50):
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) for shape in
                    ((B, Hq, Sq, Dh), (B, Gk, Skv, Dh), (B, Gk, Skv, Dh)))
         kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
@@ -637,8 +653,12 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
         tol, row_tol = FLASH_TOL[name], FLASH_ROW_TOL[name]
         pairs, cols = live_pairs(B, Sq, Skv, True, window, kv_len)
         nbytes = (2 * q.numel() + 2 * Gk * cols * Dh) * q.element_size()
-        library = (functools.partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
-                                     enable_gqa=True) if sdpa else None)
+        # SDPA computes the same function where there is no window and no
+        # softcap: causal ("causal") or, for one query row against a full
+        # cache, unmasked ("full")
+        library = (functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                     is_causal=sdpa == "causal", enable_gqa=True)
+                   if sdpa else None)
         row = {}
 
         def equal(a, b):
@@ -688,8 +708,9 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
                reps=5, plain_reps=3, trace_reps=10)
     flash_case("ragged Sq = Skv = 1000", 2, H, G, 1000, 1000, D, bf16, window=300,
                softcap=cfg.attn_softcap)
-    flash_case("smollm-360m heads", 4, 15, 5, 2048, 2048, 64, bf16, sdpa=True)
-    flash_case("qwen3-14b heads", 1, 40, 8, 4096, 4096, 128, bf16, sdpa=True)
+    flash_case("smollm-360m heads", 4, 15, 5, 2048, 2048, 64, bf16, sdpa="causal")
+    flash_case("qwen3-14b heads", 1, 40, 8, 4096, 4096, 128, bf16, sdpa="causal")
+    flash_case("qwen3-14b decode", B_dec, 40, 8, 1, max_len, 128, bf16, sdpa="full")
     torch.cuda.empty_cache()
 
     check_run = counter(torch, reset_counts, read_counts, "flash_attention", "lm")
@@ -809,8 +830,11 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
         events = device_times(prof)
         busy = sum(d for d, _, _ in events) / 1e3
         share = f"{busy / wall:.4f}" if busy else "not measured"
+        att = [(d, c) for d, key, c in events if TRACE_TAGS["flash_attention"] in key]
+        att_ms = sum(d for d, _ in att) / 1e3
         say(f"[trace] lm {what}: device busy {busy:.2f} ms of {wall:.2f} ms untraced wall, "
-            f"busy share {share} on {smi}")
+            f"busy share {share}; flash_attention {att_ms:.2f} ms in "
+            f"{sum(c for _, c in att)} launches on {smi}")
         for d, key, count in events[:6]:
             say(f"[trace]   {d / 1e3:9.3f} ms  {count:5d} x  {key[:90]}")
     del cache, first
@@ -974,9 +998,17 @@ def main() -> int:
     say(f"[build] {len(reports)} kernel libraries built in "
         f"{time.perf_counter() - t0:.1f} s ({', '.join(sorted(reports)) or 'cached'})")
     for name, log in sorted(reports.items()):
+        entry = ""
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Compiling entry function" in line:   # the ptxas -v report, per instantiation
+                entry = line.split("'")[1]
+                if name == "flash_attention":
+                    say(f"[build] {name}: {demangle(entry)}")
+            elif "Used" in line or "spill" in line or any(
+                    w in line for w in ("C7508", "C7512", "C7520")):   # setmaxnreg, wgmma serialised
                 say(f"[build] {name}: {line.strip()}")
+                if "spill" in line and " 0 bytes spill stores" not in line and "_tc_kernel" in entry:
+                    fail(f"ptxas spills in {demangle(entry)}: {line.strip()}")
 
     lap(2)
 

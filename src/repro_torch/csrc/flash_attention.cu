@@ -8,47 +8,77 @@
 // - window), the tanh softcap, GQA (head h reads kv head h / rep) and a
 // per-row kv length. Masked scores are filled with -1e30 and their weights
 // set to 0, and the denominator is clamped at 1e-30, as in the reference, so
-// a fully masked row gives 0.
+// a fully masked row gives 0. Any Sq and Skv: the ragged edges are masked,
+// not asserted away.
 //
 // The TPU kernel walks a grid (B, H, q tiles, kv tiles) whose last axis runs
 // in order on one core and carries (acc, m, l) across it in VMEM. Blocks on
-// the card run in no order, so here one block owns a (b, h, q tile) and
-// loops over the kv tiles itself, holding the softmax state in registers.
-// It visits only the tiles in [lo, hi) that hold a live pair, which is the
-// TPU kernel's skip rule plus col < kv_len[b]; q tiles are issued from the
-// last (the most work under a causal mask) to the first. Any Sq and Skv:
-// the ragged edges are masked (out-of-range K and V rows staged as zeros),
-// not asserted away.
+// the card run in no order, so here a block loops over its kv tiles itself,
+// holding the softmax state in registers, and visits only the tiles in
+// [lo, hi) that hold a live pair (the TPU kernel's skip rule plus
+// col < kv_len[b]).
 //
-// Bound: at the prefill shapes of gemma2-2b (Sq = Skv = 32768, D = 256) the
-// work is 4 * D operations per live (row, col) pair per head, some 900
-// operations per byte of q, k, v and o: operations bound it. At decode
-// (Sq = 1 against a 32768-token cache) each K and V row is used by one query
-// row per head: bytes bound it, the whole cache read once per step.
+// Bound: at gemma2-2b's prefill (Sq = Skv = 32768, D = 256) the work is
+// 4 * D operations per live (row, col) pair per head, some 900 operations
+// per byte of q, k, v and o: the tensor cores' bf16 rate bounds it. At
+// decode (Sq = 1 against a 32768-token cache) each K and V row serves the
+// rep query rows of its kv head once: bytes bound it, the cache read once.
 //
-// Design: two kernels behind one launcher, each templated on D (32, 64, 128
-// or 256, the head widths of the LM archs).
-//  * bf16 (the serving dtype): flash_attention_wmma_kernel, a block of 4
-//    warps over 64 query rows; each warp owns 16 rows and runs Q K^T and P V
-//    on the tensor cores with nvcuda::wmma 16x16x16 bf16 tiles and fp32
-//    accumulators. Q, K and V tiles are staged in dynamic shared memory with
-//    16-byte loads (D = 256 takes 83 KB, so 2 blocks fit on an SM); the
-//    scores go through shared memory for the masked softmax, P is rounded to
-//    bf16 for its product with V (the TPU kernel keeps P and V in fp32 there:
-//    this kernel's one departure from its arithmetic, a relative error of at
-//    most 2^-8 in each weight), and the fp32 output accumulators stay in
-//    registers, rescaled row by row through a fragment that holds each
-//    element's row index (loaded from a 16x16 matrix of row numbers, so no
-//    undocumented fragment layout is assumed). Warps whose 16 rows lie past
-//    Sq skip their products, so a decode step (Sq = 1) runs one warp's.
-//  * fp32: flash_attention_kernel, scalar FMAs over 32 x 32 tiles in shared
-//    memory (rows padded by one float against bank conflicts), four threads
-//    to a query row, each holding D / 4 output accumulators in registers.
-// Both read K and V once per q tile with no pipelining, and decode has no
-// split over the cache: a block walks all of its row's cache alone. wgmma,
-// TMA and a split-KV decode are for a later change.
+// Three kernels behind one launcher, each templated on D (32, 64, 128 or
+// 256, the head widths of the LM archs):
+//  * bf16 prefill, flash_attention_tc_kernel<D, false, kCap>, FA3's shape,
+//    for the operations bound: every product on the tensor cores through
+//    wgmma, fed by TMA so that no thread spends an instruction on a copy.
+//    Three warpgroups: one thread of the producer's keeps TMA loads of K
+//    and V tiles in flight through two rings in dynamic shared memory (2 to
+//    4 stages, as many as fit; an mbarrier per stage for "full" and one for
+//    "empty"), and two consumer warpgroups own 64 query rows each;
+//    setmaxnreg moves the producer's registers to them (240 a thread, so the
+//    m64n256 output accumulator of D = 256 stays in registers).
+//    S = Q K^T is wgmma m64nBKk16 with Q and K both read from 128-byte
+//    swizzled shared memory (64-byte at D = 32), K-major. The online softmax
+//    runs on the fp32 accumulator fragments in registers, in the log2 domain
+//    with one FFMA and one ex2 per score, the mask applied only on the
+//    tiles at its edges. P is rounded to bf16 into the A-operand registers
+//    of the next wgmma (the m64nN accumulator layout is the A fragment's),
+//    and O += P V reads V from shared memory as a transposed (MN-major) B
+//    operand, so V needs no transpose. A warpgroup issues S_i and P_{i-1}
+//    V_{i-1} together and runs the softmax of tile i while the tensor cores
+//    finish the second (FA3's intra-warpgroup overlap); the two warpgroups
+//    overlap each other's softmax too. The softcap (a template flag) takes
+//    tanh.approx.f32. A block per SM takes (q tile, head, batch row) items
+//    from a queue, the last q tile of every head (the most work under a
+//    causal mask) first, and loads the next item's tiles while it finishes
+//    the last, so no block's start waits on a copy; a warpgroup skips the
+//    products of a tile none of its rows reaches. Tiles: 128 query rows by
+//    64 kv rows at D = 256 (64 KB of Q, 2 stages of 32 KB of K and 32 KB of
+//    V), by 128 below.
+//  * bf16 decode (up to 8 query rows per head, rep * Sq <= 64; ops.py::
+//    plan_splits), flash_attention_tc_kernel<D, true, kCap>, split-KV, for
+//    the bytes bound: every cache byte read once, by enough blocks to keep
+//    the card's memory busy. A block owns one (b, kv head, split of the
+//    cache) and serves all rep query heads of its kv head in one wgmma tile
+//    of 64 rows, so each K and V row is read once, not rep times. The split
+//    count fills the 132 SMs from B * G and Skv; a split past a row's kv_len
+//    or before its window writes an empty partial. Each split keeps fp32
+//    (m, l, acc) as the TPU kernel's scratch does and writes it to a scratch
+//    buffer of the wrapper's; the last block of a (b, kv head) to arrive (a
+//    ticket counter the wrapper zeroes) merges every split in split order,
+//    in the same launch, so the result is the same from run to run (no
+//    float atomics). The producer and consumer code of prefill, with one
+//    consumer warpgroup, kv tiles of 64 rows and 3 (D = 256) or 4 stages of
+//    K and V in flight.
+//  * fp32 (the parity path): flash_attention_kernel, scalar FMAs over 32 x 32
+//    tiles in shared memory (rows padded by one float against bank
+//    conflicts), four threads to a query row, each holding D / 4 output
+//    accumulators in registers; tanhf for the softcap.
+// The bf16 kernels round P to bf16 before P V, where the TPU kernel keeps P
+// and V in fp32: a relative error of at most 2^-8 in each weight. The TMA
+// maps are 3-D, {D, rows, heads}, so the rows of a box past Sq or Skv are
+// zero-filled within their own head and never read from the next one.
+#include <cuda.h>          // CUtensorMap and its enums; the driver is reached through the runtime
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include "qac_common.cuh"  // qac_error_string, which every kernel library exports
 
@@ -63,6 +93,11 @@ struct Params {
   int H, Sq, Skv, rep, off;  // off = Skv - Sq, the causal offset
   int causal, window;
   float softcap, scale;
+  int G;
+  int R;           // query rows of a tile's view: Sq (prefill) or rep * Sq (decode)
+  int splits;      // decode: the cache's splits (1: no merge)
+  int split_cols;  // decode: columns per split, a multiple of the kv tile
+  int B;           // batch rows: the prefill work queue spans B * H * q tiles
 };
 
 __device__ __forceinline__ int kv_len_of(const Params& p, int b) {
@@ -196,227 +231,799 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wmma tensor-core tiles
+// bf16: wgmma on a TMA-fed ring
 // ---------------------------------------------------------------------------
-constexpr int kWmmaBQ = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSplits = 64;  // ops.py::MAX_SPLITS: the merge's weights fit the idle ring
+constexpr int kDecodeRows = 64;  // ops.py::DECODE_ROWS: one wgmma tile of query rows
 
-template <int D>
-constexpr int kWmmaBK = D >= 256 ? 32 : 64;  // kv tile: 83 KB of shared memory at D = 256
+template <int D, bool kDecode>
+struct Tc {
+  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span in bytes: one row chunk
+  static constexpr int CC = SW / 2;              // bf16 columns per chunk
+  static constexpr int NCH = D / CC;             // chunks per row
+  static constexpr int KPC = CC / 16;            // k16 steps per chunk
+  static constexpr int NC = kDecode ? 1 : 2;     // consumer warpgroups
+  static constexpr int BQ = 64 * NC;             // query rows per block
+  static constexpr int BK = kDecode || D == 256 ? 64 : 128;
+  // The consumer warpgroups, then the producer's. setmaxnreg hands the
+  // producer's registers to the consumers: 24 + NC * CONSUMER_REGS fits the
+  // (NC + 1) * (65536 / THREADS) the launch bound leaves each thread.
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma descriptor: B128, B64
+  static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr uint32_t FIXED = 1024 + Q_BYTES + 8 * 18 + 16;  // alignment, Q, barriers, 2 ints
+  static constexpr int STAGES = (232448 - FIXED) / (2 * KV_BYTES) < 4
+                                    ? (232448 - FIXED) / (2 * KV_BYTES) : 4;
+  static constexpr uint32_t RING = STAGES * 2 * KV_BYTES;  // the K and V rings
+  static constexpr size_t SMEM = FIXED + RING;
+  static_assert(STAGES >= 2, "shared memory");
+  static_assert(!kDecode || RING >= kMaxSplits * kDecodeRows * 4, "merge weights");
+};
 
-template <int D>
-constexpr size_t wmma_smem_bytes() {
-  constexpr int BQ = kWmmaBQ, BK = kWmmaBK<D>, LD = D + 8;
-  return sizeof(bf16) * (BQ * LD + 2 * BK * LD + BQ * (BK + 8)) +
-         sizeof(float) * (BQ * (BK + 4) + BQ + 256);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint4 load16(const bf16* src) {
-  return *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_wmma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, Params p) {
-  using namespace nvcuda;
-  constexpr int BQ = kWmmaBQ, BK = kWmmaBK<D>;
-  constexpr int LD = D + 8, LS = BK + 4, LP = BK + 8;  // padded row strides
-  constexpr int NF = D / 16, NJ = BK / 16, V8 = D / 8, HALF = BK / 2;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  using MatA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  // Every region's size is a multiple of 32 bytes, so each fragment's base
-  // is 32-byte aligned, as wmma requires.
-  extern __shared__ __align__(128) unsigned char raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(raw);                   // [BQ][LD]
-  bf16* sK = sQ + BQ * LD;                                   // [BK][LD]
-  bf16* sV = sK + BK * LD;                                   // [BK][LD]
-  bf16* sP = sV + BK * LD;                                   // [BQ][LP]
-  float* sS = reinterpret_cast<float*>(sP + BQ * LP);        // [BQ][LS]
-  float* sA = sS + BQ * LS;                                  // [BQ] per-row factor
-  float* sRow = sA + BQ;                                     // [16][16] row numbers
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int r0 = qt * BQ, r1 = min(r0 + BQ, p.Sq);
-  const size_t q_base = ((size_t)b * p.H + h) * p.Sq * D;
-  const size_t kv_base = ((size_t)b * (p.H / p.rep) + h / p.rep) * p.Skv * D;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
 
-  for (int i = tid; i < BQ * V8; i += kThreads) {
-    const int rr = i / V8, c8 = (i % V8) * 8;
-    *reinterpret_cast<uint4*>(sQ + rr * LD + c8) =
-        r0 + rr < p.Sq ? load16(q + q_base + (size_t)(r0 + rr) * D + c8) : zero;
-  }
-  for (int i = tid; i < 256; i += kThreads) sRow[i] = (float)(i / 16);
-  __syncthreads();
-  Acc rowmap;  // element i of any accumulator fragment lies in row rowmap.x[i]
-  wmma::load_matrix_sync(rowmap, sRow, 16, wmma::mem_row_major);
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-  Acc o[NF];
+// One box of a 3-D map {D, rows, heads} at (col, row, head) into shared
+// memory; its bytes count against the barrier's expected transactions.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+
+// A wgmma shared-memory operand: start address, leading and stride byte
+// offsets (all in 16-byte units) and the swizzle mode.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(o[f], 0.f);
-  const int klen = kv_len_of(p, b);
-  int lo, hi;
-  col_range(p, r0, r1, klen, lo, hi);
-  const bool warp_live = r0 + warp * 16 < p.Sq;          // any of its rows real
-  const int my_r = warp * 16 + (lane >> 1), half = lane & 1;  // softmax: 2 lanes a row
-  const int row = r0 + my_r, row_abs = row + p.off;
-  const bool row_ok = row < p.Sq;
-  float m = kNeg, l = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
 
-  for (int c0 = lo / BK * BK; c0 < hi; c0 += BK) {
-    __syncthreads();  // every warp is done with the previous K and V
-    for (int i = tid; i < BK * V8; i += kThreads) {
-      const int cc = i / V8, c8 = (i % V8) * 8, col = c0 + cc;
-      uint4 kx = zero, vx = zero;
-      if (col < p.Skv) {
-        const size_t at = kv_base + (size_t)col * D + c8;
-        kx = load16(k + at);
-        vx = load16(v + at);
-      }
-      *reinterpret_cast<uint4*>(sK + cc * LD + c8) = kx;
-      *reinterpret_cast<uint4*>(sV + cc * LD + c8) = vx;
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void named_sync_128() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N]: A and B from shared memory (K-major).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+// D[64 x N] += A[64 x 16] B[16 x N]: A from registers, B from shared memory
+// MN-major (transposed).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Shared memory: Q [NCH chunks][BQ rows][SW bytes], then the K ring and the
+// V ring, stage s of each holding a tile as [NCH][BK][SW], then the barriers
+// full_k[STAGES], full_v[STAGES], empty_k[STAGES], empty_v[STAGES], q_full,
+// q_empty, then the merge's flag and the producer's current item. Every
+// region starts on 1024 bytes, the period of the 128-byte swizzle.
+//
+// Fragment layout of a wgmma m64nN fp32 accumulator d[N / 2] in thread t of
+// the warpgroup (warp w = t / 32, lane l): d[4j + 2h + e] is row
+// 16w + l/4 + 8h, column 8j + 2(l%4) + e. For k16 step kk of P V, the A
+// registers are d[8kk .. 8kk + 7] of S in pairs, in that order.
+//
+// A prefill block is persistent, one per SM: its producer takes work items
+// (q tile, head, batch row) from a queue, a counter in device memory that
+// the wrapper zeroes, in the order j = 0, 1, ... that puts the last q tile
+// (the most work under a causal mask) of every head first, passes each to
+// the consumers through shared memory, and starts the next item's Q, K and
+// V loads while they finish the last one. The rings' stages and phases run
+// on over the items. A decode block has one item. A consumer warpgroup runs its
+// live tiles [a, z) of an item as FA3 does: in step i it issues
+// S_i = Q K_i^T and O += P_{i-1} V_{i-1}, waits for S_i only, runs the
+// softmax of tile i while the tensor cores finish P_{i-1} V_{i-1}, then
+// rescales O and rounds P_i into the A registers. K and V have rings of
+// their own, so K_i's stage is free as soon as S_i is done.
+template <int D, bool kDecode, bool kCap>
+__global__ void __launch_bounds__(Tc<D, kDecode>::THREADS, 1)
+    flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                              float* __restrict__ part, int* __restrict__ counters,
+                              const Params p) {
+  using T = Tc<D, kDecode>;
+  constexpr int BK = T::BK, SW = T::SW, STAGES = T::STAGES, CC = T::CC;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t sQ = base, k_ring = base + T::Q_BYTES, v_ring = k_ring + STAGES * T::KV_BYTES;
+  const uint32_t bars = v_ring + STAGES * T::KV_BYTES;
+  const uint32_t full_k = bars, full_v = bars + 8 * STAGES;    // + 8 * stage
+  const uint32_t empty_k = bars + 16 * STAGES, empty_v = bars + 24 * STAGES;
+  const uint32_t q_full = bars + 32 * STAGES, q_empty = q_full + 8;
+  int* const flag = reinterpret_cast<int*>(gbase + (bars - base) + 32 * STAGES + 16);
+  volatile int* const item_slot = flag + 1;  // the item the producer took, for the consumers
+
+  // Work item j: the kv head it reads, the rows of its Q box, and the kv
+  // tiles [t0, t0 + nt) that hold a live pair for some of its rows.
+  const int n_qt = (p.Sq + T::BQ - 1) / T::BQ;
+  const int n_items = kDecode ? 1 : n_qt * p.H * p.B;
+  struct Item {
+    int klen, kvh, q_head, q_row0, lo, hi, t0, nt;
+  };
+  auto item = [&](int j) {
+    Item w;
+    int b;
+    if (kDecode) {
+      b = blockIdx.z;
+      w.klen = kv_len_of(p, b);
+      w.kvh = b * p.G + blockIdx.y;
+      w.q_head = w.kvh;  // q viewed as [B * G, rep * Sq, D]: every head of kv head g
+      w.q_row0 = 0;
+      col_range(p, 0, p.Sq, w.klen, w.lo, w.hi);
+      w.lo = max(w.lo, static_cast<int>(blockIdx.x) * p.split_cols);
+      w.hi = min(w.hi, static_cast<int>(blockIdx.x + 1) * p.split_cols);
+    } else {
+      const int hb = j % (p.H * p.B), h = hb % p.H;  // every head's last q tile first
+      b = hb / p.H;
+      w.klen = kv_len_of(p, b);
+      w.kvh = b * p.G + h / p.rep;
+      w.q_head = b * p.H + h;  // q viewed as [B * H, Sq, D]
+      w.q_row0 = (n_qt - 1 - j / (p.H * p.B)) * T::BQ;
+      col_range(p, w.q_row0, min(w.q_row0 + T::BQ, p.Sq), w.klen, w.lo, w.hi);
     }
-    __syncthreads();
-    if (!warp_live) continue;
+    w.t0 = w.lo / BK;
+    w.nt = w.hi > w.lo ? (w.hi + BK - 1) / BK - w.t0 : 0;
+    return w;
+  };
 
-    {  // S = Q K^T for this warp's 16 rows, into shared memory
-      Acc s[NJ];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);  // the producer's expect_tx
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, T::NC * 128);  // every consumer thread
+      mbar_init(empty_v + 8 * s, T::NC * 128);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, T::NC * 128);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // The warpgroup index, read through a shuffle so that the compiler knows it
+  // is the same in every thread of a warp: the wgmmas below then lie on no
+  // path it must treat as divergent, which would serialise them.
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == T::NC) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(T::PRODUCER_REGS));
+    if (threadIdx.x == T::NC * 128) {
+      int g = 0;  // tiles issued so far: their ring stage and phase
+      int j = kDecode ? 0 : atomicAdd(counters, 1);
+      for (int n = 0;; ++n) {
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);  // every S of the last item is done
+        *item_slot = j < n_items ? j : -1;
+        if (j >= n_items) {  // no work left: tell the consumers
+          mbar_arrive(q_full);
+          break;
+        }
+        const Item w = item(j);
+        j = kDecode ? n_items : atomicAdd(counters, 1);  // the next item, taken early
+        mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) wmma::fill_fragment(s[j], 0.f);
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load(sQ + c * T::BQ * SW, &tq, q_full, c * CC, w.q_row0, w.q_head);
+        for (int i = 0; i < w.nt; ++i, ++g) {
+          const int s = g % STAGES, c0 = (w.t0 + i) * BK;
+          const uint32_t parity = (g / STAGES - 1) & 1;
+          if (g >= STAGES) mbar_wait(empty_k + 8 * s, parity);
+          mbar_expect_tx(full_k + 8 * s, T::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < T::NCH; ++c)
+            tma_load(k_ring + s * T::KV_BYTES + c * BK * SW, &tk, full_k + 8 * s, c * CC, c0,
+                     w.kvh);
+          if (g >= STAGES) mbar_wait(empty_v + 8 * s, parity);
+          mbar_expect_tx(full_v + 8 * s, T::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < T::NCH; ++c)
+            tma_load(v_ring + s * T::KV_BYTES + c * BK * SW, &tv, full_v + 8 * s, c * CC, c0,
+                     w.kvh);
+        }
+        if (kDecode) break;
+      }
+    }
+  } else {  // the consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(T::CONSUMER_REGS));
+    const int cw = wg, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, quad = lane % 4;
+    // The softmax works on u = s (or tanh(s * scale / c) with the softcap c)
+    // and weighs each by 2^(k * (u - max u)): k = scale * log2(e), or
+    // c * log2(e). m holds max u.
+    const float k_in = kCap ? p.scale / p.softcap : 0.f;
+    const float k2 = (kCap ? p.softcap : p.scale) * kLog2e;
+    const uint32_t q_base = sQ + 64 * cw * SW;
+
+    Item w;
+    int g0 = 0;  // tiles consumed before this item: the ring stage and phase of its first
+    // This thread's two rows of the Q box, h = 0, 1: their query row, whether
+    // they are real, and the columns [col_lo, col_hi) each row sees; the
+    // absolute positions of this warpgroup's first and last query rows.
+    int box_row[2], q_row[2], col_lo[2], col_hi[2], abs_first, abs_last;
+    bool real[2];
+    float o[D / 2], sc[BK / 2], m[2], l[2];
+    uint32_t pa[BK / 16][4];
+
+    auto pass = [&](int i) {  // a tile none of this warpgroup's rows reaches
+      const int s = (g0 + i) % STAGES;
+      const uint32_t parity = ((g0 + i) / STAGES) & 1;
+      mbar_wait(full_k + 8 * s, parity);
+      mbar_arrive(empty_k + 8 * s);
+      mbar_wait(full_v + 8 * s, parity);
+      mbar_arrive(empty_v + 8 * s);
+    };
+    auto wait_k = [&](int i) {
+      mbar_wait(full_k + 8 * ((g0 + i) % STAGES), ((g0 + i) / STAGES) & 1);
+    };
+    auto wait_v = [&](int i) {
+      mbar_wait(full_v + 8 * ((g0 + i) % STAGES), ((g0 + i) / STAGES) & 1);
+    };
+    auto free_k = [&](int i) { mbar_arrive(empty_k + 8 * ((g0 + i) % STAGES)); };
+    auto free_v = [&](int i) { mbar_arrive(empty_v + 8 * ((g0 + i) % STAGES)); };
+    auto issue_s = [&](int i) {  // S_i = Q K_i^T, committed as one group
+      const uint32_t ks = k_ring + ((g0 + i) % STAGES) * T::KV_BYTES;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        MatA a;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * LD + kk * 16, LD);
+        const int ch = kk / T::KPC, in = kk % T::KPC;
+        wgmma_ss<BK>(sc, smem_desc(q_base + ch * T::BQ * SW + in * 32, 16, 8 * SW, T::LAYOUT),
+                     smem_desc(ks + ch * BK * SW + in * 32, 16, 8 * SW, T::LAYOUT), kk > 0);
+      }
+      wg_commit();
+    };
+    auto issue_pv = [&](int i) {  // O += P_i V_i, committed as one group
+      const uint32_t vs = v_ring + ((g0 + i) % STAGES) * T::KV_BYTES;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-          wmma::load_matrix_sync(kb, sK + j * 16 * LD + kk * 16, LD);
-          wmma::mma_sync(s[j], a, kb, s[j]);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<D>(o, pa[kk], smem_desc(vs + kk * 16 * SW, BK * SW, 8 * SW, T::LAYOUT));
+      wg_commit();
+    };
+    // The masked online softmax of tile i on sc, in place: the weights in
+    // fp32, the row sums in l; returns each row's factor for O in alpha.
+    auto softmax = [&](int i, float (&alpha)[2]) {
+      const int c0 = (w.t0 + i) * BK;
+      if (kCap) {
+#pragma unroll
+        for (int idx = 0; idx < BK / 2; ++idx) sc[idx] = tanh_approx(sc[idx] * k_in);
+      }
+      if (c0 + BK > w.klen || (p.causal && c0 + BK - 1 > abs_first) ||
+          (p.window > 0 && c0 <= abs_last - p.window)) {  // a tile on an edge of the mask
+#pragma unroll
+        for (int idx = 0; idx < BK / 2; ++idx) {
+          const int h = (idx / 2) % 2, col = c0 + 8 * (idx / 4) + 2 * quad + idx % 2;
+          if (static_cast<unsigned>(col - col_lo[h]) >=
+              static_cast<unsigned>(col_hi[h] - col_lo[h]))
+            sc[idx] = kNeg;
         }
       }
+      float mx[2] = {kNeg, kNeg};
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        wmma::store_matrix_sync(sS + warp * 16 * LS + j * 16, s[j], LS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    {  // the masked online softmax: two lanes per row, HALF columns each
-      const float* srow = sS + my_r * LS + half * HALF;
-      float sv[HALF];
-      unsigned live = 0;
-      float mx = kNeg;
+      for (int idx = 0; idx < BK / 2; ++idx) mx[(idx / 2) % 2] = fmaxf(mx[(idx / 2) % 2], sc[idx]);
+      float bias[2];
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const bool ok = row_ok && is_live(p, row_abs, c0 + half * HALF + i, klen);
-        sv[i] = ok ? score(srow[i], p) : kNeg;
-        live |= (unsigned)ok << i;
-        mx = fmaxf(mx, sv[i]);
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        const float mu = m_new == kNeg ? 0.f : m_new;  // no live column yet: every weight 0
+        alpha[h] = exp2_approx((m[h] - mu) * k2);
+        bias[h] = -mu * k2;
+        m[h] = m_new;
+        l[h] *= alpha[h];
       }
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      const float m_new = fmaxf(m, mx), alpha = __expf(m - m_new);
-      float sum = 0.f;
-      bf16* prow = sP + my_r * LP + half * HALF;
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const float e = (live >> i) & 1u ? __expf(sv[i] - m_new) : 0.f;
-        prow[i] = __float2bfloat16(e);
-        sum += e;
+      for (int idx = 0; idx < BK / 2; ++idx) {
+        const float e = exp2_approx(fmaf(sc[idx], k2, bias[(idx / 2) % 2]));
+        l[(idx / 2) % 2] += e;
+        sc[idx] = e;
       }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      l = l * alpha + sum;
-      m = m_new;
-      if (half == 0) sA[my_r] = alpha;
-    }
-    __syncwarp();
-
-    float a_row[Acc::num_elements];
+    };
+    auto rescale_and_round = [&](const float (&alpha)[2]) {  // O *= alpha; P_i -> pa
 #pragma unroll
-    for (int i = 0; i < Acc::num_elements; ++i) a_row[i] = sA[warp * 16 + (int)rowmap.x[i]];
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-#pragma unroll
-      for (int i = 0; i < Acc::num_elements; ++i) o[f].x[i] *= a_row[i];
-#pragma unroll
-    for (int kk = 0; kk < NJ; ++kk) {  // O += P V
-      MatA pa;
-      wmma::load_matrix_sync(pa, sP + warp * 16 * LP + kk * 16, LP);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, sV + kk * 16 * LD + f * 16, LD);
-        wmma::mma_sync(o[f], pa, vb, o[f]);
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
-    }
-  }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    };
 
-  if (!warp_live) return;  // no block-wide barrier follows
-  if (half == 0) sA[my_r] = 1.f / fmaxf(l, 1e-30f);
-  __syncwarp();
-  float inv[Acc::num_elements];
+    for (int n = 0;; ++n, g0 += w.nt) {
+      mbar_wait(q_full, n & 1);
+      const int j = kDecode ? 0 : *item_slot;
+      if (j < 0) break;
+      w = item(j);
 #pragma unroll
-  for (int i = 0; i < Acc::num_elements; ++i) inv[i] = sA[warp * 16 + (int)rowmap.x[i]];
-  float* stage = sS + warp * 16 * LS;  // this warp's own score rows, free now
+      for (int h = 0; h < 2; ++h) {
+        box_row[h] = 64 * cw + 16 * warp + lane / 4 + 8 * h;
+        q_row[h] = kDecode ? box_row[h] % p.Sq : w.q_row0 + box_row[h];
+        real[h] = kDecode ? box_row[h] < p.R : q_row[h] < p.Sq;
+        const int row_abs = q_row[h] + p.off;
+        col_lo[h] = p.window > 0 ? max(row_abs - p.window + 1, 0) : 0;
+        col_hi[h] = max(p.causal ? min(w.klen, row_abs + 1) : w.klen, col_lo[h]);
+        m[h] = kNeg;
+        l[h] = 0.f;
+      }
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      // This warpgroup's query rows [w_first, w_last], and its live tiles
+      // [a, z) of the item's [0, nt): the others it only lets pass.
+      const int w_first = kDecode ? 0 : w.q_row0 + 64 * cw;
+      const int w_last = kDecode ? p.Sq - 1 : min(w_first + 63, p.Sq - 1);
+      int lo_w = w.lo, hi_w = w.hi;
+      if (w_first > w_last) {
+        hi_w = lo_w;
+      } else if (!kDecode) {
+        int x, y;
+        col_range(p, w_first, w_last + 1, w.klen, x, y);
+        lo_w = max(lo_w, x);
+        hi_w = min(hi_w, y);
+      }
+      const int a = hi_w > lo_w ? lo_w / BK - w.t0 : 0;
+      const int z = hi_w > lo_w ? (hi_w + BK - 1) / BK - w.t0 : 0;
+      abs_first = w_first + p.off;
+      abs_last = w_last + p.off;
+
+      for (int i = 0; i < a; ++i) pass(i);
+      if (a < z) {
+        float alpha[2];
+        wait_k(a);
+        wg_fence();
+        issue_s(a);
+        wg_wait<0>();
+        fence_regs(sc);
+        free_k(a);
+        softmax(a, alpha);
+        rescale_and_round(alpha);
+        for (int i = a + 1; i < z; ++i) {
+          wait_k(i);
+          fence_regs(o);
+          fence_regs(pa);
+          wg_fence();
+          issue_s(i);
+          wait_v(i - 1);
+          issue_pv(i - 1);
+          wg_wait<1>();  // S_i is done; P_{i-1} V_{i-1} may still run
+          fence_regs(sc);
+          free_k(i);
+          softmax(i, alpha);
+          wg_wait<0>();
+          fence_regs(o);
+          fence_regs(pa);
+          free_v(i - 1);
+          rescale_and_round(alpha);
+        }
+        mbar_arrive(q_empty);  // every S of the item is done: the next Q may come
+        wait_v(z - 1);
+        fence_regs(o);
+        fence_regs(pa);
+        wg_fence();
+        issue_pv(z - 1);
+        wg_wait<0>();
+        fence_regs(o);
+        free_v(z - 1);
+      } else {
+        mbar_arrive(q_empty);
+      }
+      for (int i = max(z, a); i < w.nt; ++i) pass(i);
+
 #pragma unroll
-    for (int i = 0; i < Acc::num_elements; ++i) o[f].x[i] *= inv[i];
-    wmma::store_matrix_sync(stage, o[f], LS, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int rr = i / 16, cc = i % 16, orow = r0 + warp * 16 + rr;
-      if (orow < p.Sq)
-        out[q_base + (size_t)orow * D + f * 16 + cc] = __float2bfloat16(stage[rr * LS + cc]);
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(kFull, l[h], 1);
+        l[h] += __shfl_xor_sync(kFull, l[h], 2);
+      }
+      if (!kDecode || p.splits == 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!real[h]) continue;
+          const float inv = 1.f / fmaxf(l[h], 1e-30f);
+          bf16* orow = out + (static_cast<size_t>(w.q_head) * p.R +
+                              (kDecode ? box_row[h] : q_row[h])) * D;
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * quad) =
+                __floats2bfloat162_rn(o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
+        }
+        if (kDecode) break;
+        continue;
+      }
+
+      // Split-KV: this split's (m, l, acc) to the scratch, acc as [B * G,
+      // splits, R, D] and (m, l) as [B * G, splits, R, 2] after it; the last
+      // block of the kv head to take a ticket merges every split in split
+      // order.
+      const int S = p.splits, R = p.R;
+      float* const acc_all = part;
+      float* const ml_all = part + static_cast<size_t>(p.B) * p.G * S * R * D;
+      const size_t slot = (static_cast<size_t>(w.kvh) * S + blockIdx.x) * R;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!real[h]) continue;
+        float* acc = acc_all + (slot + box_row[h]) * D;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<float2*>(acc + 8 * jj + 2 * quad) =
+              make_float2(o[4 * jj + 2 * h], o[4 * jj + 2 * h + 1]);
+        if (quad == 0)
+          *reinterpret_cast<float2*>(ml_all + (slot + box_row[h]) * 2) =
+              make_float2(m[h] * k2, l[h]);
+      }
+      __threadfence();
+      named_sync_128();
+      if (t == 0) *flag = atomicAdd(counters + w.kvh, 1) == S - 1;
+      named_sync_128();
+      if (!*flag) return;
+      __threadfence();
+
+      float* const wts = reinterpret_cast<float*>(gbase + T::Q_BYTES);  // [S][R]: the rings are idle
+      const size_t head0 = static_cast<size_t>(w.kvh) * S * R;
+      for (int r = t; r < R; r += 128) {  // each split's weight in each row
+        float M = kNeg, L = 0.f;
+        for (int s = 0; s < S; ++s) {
+          const float2 ml =
+              __ldcg(reinterpret_cast<const float2*>(ml_all + (head0 + s * R + r) * 2));
+          if (ml.y > 0.f) M = fmaxf(M, ml.x);
+        }
+        for (int s = 0; s < S; ++s) {
+          const float2 ml =
+              __ldcg(reinterpret_cast<const float2*>(ml_all + (head0 + s * R + r) * 2));
+          if (ml.y > 0.f) L += ml.y * exp2_approx(ml.x - M);
+        }
+        const float inv = 1.f / fmaxf(L, 1e-30f);
+        for (int s = 0; s < S; ++s) {
+          const float2 ml =
+              __ldcg(reinterpret_cast<const float2*>(ml_all + (head0 + s * R + r) * 2));
+          wts[s * R + r] = ml.y > 0.f ? exp2_approx(ml.x - M) * inv : 0.f;
+        }
+      }
+      named_sync_128();
+      for (int e = t; e < R * (D / 4); e += 128) {
+        const int r = e / (D / 4), d4 = e % (D / 4);
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = 0; s < S; ++s) {
+          const float wt = wts[s * R + r];
+          if (wt == 0.f) continue;
+          const float4 x =
+              __ldcg(reinterpret_cast<const float4*>(acc_all + (head0 + s * R + r) * D) + d4);
+          acc.x += wt * x.x;
+          acc.y += wt * x.y;
+          acc.z += wt * x.z;
+          acc.w += wt * x.w;
+        }
+        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+            out + (static_cast<size_t>(w.kvh) * R + r) * D + 4 * d4);
+        dst[0] = __floats2bfloat162_rn(acc.x, acc.y);
+        dst[1] = __floats2bfloat162_rn(acc.z, acc.w);
+      }
+      break;  // a decode block has one item
     }
-    __syncwarp();
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int dtype, int B,
-                   const Params& p, cudaStream_t stream) {
-  if (dtype == 0) {
-    constexpr size_t smem = scalar_smem_bytes<D>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sq + kScalarBQ - 1) / kScalarBQ, p.H, B);
-    flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), p);
-  } else {
-    constexpr size_t smem = wmma_smem_bytes<D>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_wmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sq + kWmmaBQ - 1) / kWmmaBQ, p.H, B);
-    flash_attention_wmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), p);
+// The driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
   }
+  return fn;
+}
+
+// bf16 [heads, rows, D] at ptr, read in boxes of box_rows rows x one chunk,
+// swizzled as the kernel's shared memory expects. Rows past `rows` read 0.
+template <int D>
+bool tensor_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map, const void* ptr,
+                int rows, int heads, int box_rows) {
+  using T = Tc<D, false>;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::CC), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int D, bool kDecode, bool kCap>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, void* part,
+                      void* counters, int B, const Params& p, cudaStream_t stream) {
+  using T = Tc<D, kDecode>;
+  const bool bad_plan =
+      kDecode ? p.R > kDecodeRows || p.splits < 1 || p.splits > kMaxSplits ||
+                    p.split_cols % T::BK != 0 ||
+                    static_cast<long long>(p.splits) * p.split_cols < p.Skv ||
+                    (p.splits > 1 && (part == nullptr || counters == nullptr))
+              : counters == nullptr;  // prefill: the work queue's counter
+  if (bad_plan) return cudaErrorInvalidValue;
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  const int q_rows = kDecode ? p.R : p.Sq, q_heads = kDecode ? B * p.G : B * p.H;
+  if (!tensor_map<D>(encode, &tq, q, q_rows, q_heads, T::BQ) ||
+      !tensor_map<D>(encode, &tk, k, p.Skv, B * p.G, T::BK) ||
+      !tensor_map<D>(encode, &tv, v, p.Skv, B * p.G, T::BK))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_attention_tc_kernel<D, kDecode, kCap>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::SMEM));
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.splits, p.G, B);  // decode: a block per split and kv head
+  if (!kDecode) {  // prefill: persistent, a block per SM (its shared memory and threads fill one)
+    int dev, sms;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return cudaGetLastError();
+    const long long items = static_cast<long long>((p.Sq + T::BQ - 1) / T::BQ) * p.H * B;
+    grid = dim3(static_cast<unsigned>(items < sms ? items : sms));
+  }
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, static_cast<bf16*>(out),
+                                                  static_cast<float*>(part),
+                                                  static_cast<int*>(counters), p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* part,
+                   void* counters, int dtype, int B, const Params& p, cudaStream_t stream) {
+  if (dtype == 1) {
+    const bool cap = p.softcap > 0.f;
+    if (p.splits > 0)
+      return cap ? launch_tc<D, true, true>(q, k, v, out, part, counters, B, p, stream)
+                 : launch_tc<D, true, false>(q, k, v, out, part, counters, B, p, stream);
+    return cap ? launch_tc<D, false, true>(q, k, v, out, part, counters, B, p, stream)
+               : launch_tc<D, false, false>(q, k, v, out, part, counters, B, p, stream);
+  }
+  constexpr size_t smem = scalar_smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + kScalarBQ - 1) / kScalarBQ, p.H, B);
+  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (backend.FLOAT_CODES); kv_len may be null.
-// The wrapper checks the shapes (H % G == 0, D in {32, 64, 128, 256}), that
-// every tensor is contiguous on one card with 16-byte aligned rows, and that
-// B, H, Sq and Skv are at least 1.
+// splits > 0 asks for the bf16 split-KV decode kernel with that many splits
+// of split_cols columns (ops.py::plan_splits; part and counters, the merge's
+// scratch and a zeroed ticket per kv head, are needed when splits > 1); 0
+// for the prefill kernel, whose counters is one zeroed int, its work queue.
+// The fp32 kernel takes every call alike. The wrapper checks the shapes
+// (H % G == 0, D in {32, 64, 128, 256}), that every tensor is contiguous on
+// one card with 16-byte aligned rows, and that B, H, Sq and Skv are at
+// least 1.
 extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* kv_len, void* out, int dtype,
     int B, int H, int G, int Sq, int Skv, int D, int causal, int window, float softcap,
-    float scale, void* stream) {
+    float scale, int splits, int split_cols, void* part, void* counters, void* stream) {
   if ((dtype != 0 && dtype != 1) || G < 1 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{kv_len, H, Sq, Skv, H / G, Skv - Sq, causal, window, softcap, scale};
+  const int rep = H / G;
+  const Params p{kv_len, H,     Sq, Skv, rep, Skv - Sq, causal, window, softcap, scale, G,
+                 splits > 0 ? rep * Sq : Sq, splits, split_cols, B};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<32>(q, k, v, out, dtype, B, p, s); break;
-    case 64: err = launch<64>(q, k, v, out, dtype, B, p, s); break;
-    case 128: err = launch<128>(q, k, v, out, dtype, B, p, s); break;
-    case 256: err = launch<256>(q, k, v, out, dtype, B, p, s); break;
+    case 32: err = launch<32>(q, k, v, out, part, counters, dtype, B, p, s); break;
+    case 64: err = launch<64>(q, k, v, out, part, counters, dtype, B, p, s); break;
+    case 128: err = launch<128>(q, k, v, out, part, counters, dtype, B, p, s); break;
+    case 256: err = launch<256>(q, k, v, out, part, counters, dtype, B, p, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

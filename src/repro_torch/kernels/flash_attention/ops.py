@@ -1,9 +1,11 @@
 """``flash_attention`` (prefill) and ``flash_decode`` (one token against a KV
 cache), as a CUDA kernel on the card.
 
-On CUDA tensors both launch ``csrc/flash_attention.cu`` (bf16 on the tensor
-cores through wmma tiles, fp32 in scalar FMAs; fp32 softmax state either
-way) or raise; on CPU tensors they run the plain versions of ``ref.py``,
+On CUDA tensors both launch ``csrc/flash_attention.cu`` or raise: in bf16
+the prefill kernel (wgmma on a TMA-fed ring) or, for up to ``DECODE_MAX_SQ``
+query rows per head, the split-KV decode kernel, chosen by shape
+(``plan_splits``); in fp32 scalar FMAs; fp32 softmax state either way. On
+CPU tensors they run the plain versions of ``ref.py``,
 dispatched as the JAX package dispatches its XLA fallback: the blockwise
 online softmax from ``Sq * Skv >= 2048 * 2048`` score elements up, the
 materialised scores below. ``use_kernel=False`` asks for the plain versions
@@ -22,7 +24,32 @@ launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCKWISE_FROM = 2048 * 2048   # score elements from which the plain route goes blockwise
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 +
+         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+
+SMS = 132               # streaming multiprocessors of an H100 SXM
+DECODE_MAX_SQ = 8       # query rows per head up to which the decode kernel takes a call
+DECODE_ROWS = 64        # ... if all rep heads' rows of a kv head fit its one wgmma tile
+MAX_SPLITS = 64         # the merge keeps a weight per split and row in shared memory
+BLOCKS_PER_SM = 8       # decode blocks aimed at per SM, one resident at a time
+MIN_SPLIT_TILES = 8     # kv tiles a split holds at least
+DECODE_BLOCK_K = 64     # the decode kernel's kv tile (``Tc<D, true>::BK``)
+
+
+def plan_splits(B: int, H: int, G: int, Sq: int, Skv: int) -> tuple[int, int]:
+    """(splits, columns per split) for the bf16 decode kernel, or (0, 0) for
+    the prefill kernel. Decode takes a call when every query row of a kv
+    head (rep = H / G heads x Sq rows) fits one 64-row tile and Sq is at
+    most ``DECODE_MAX_SQ``; it splits the cache so that the B * G kv heads
+    give some ``BLOCKS_PER_SM`` blocks per SM, each split a multiple of the
+    kv tile and at least ``MIN_SPLIT_TILES`` tiles long."""
+    if Sq > DECODE_MAX_SQ or (H // G) * Sq > DECODE_ROWS:
+        return 0, 0
+    tiles = -(-Skv // DECODE_BLOCK_K)
+    want = -(-BLOCKS_PER_SM * SMS // (B * G))
+    n = max(1, min(want, MAX_SPLITS, tiles // MIN_SPLIT_TILES))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * DECODE_BLOCK_K
 
 
 def _plain(q, k, v, kv_len, **kw):
@@ -78,11 +105,21 @@ def flash_attention(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0.0,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    splits, cols = plan_splits(B, H, G, Sq, Skv) if q.dtype == torch.bfloat16 else (0, 0)
+    part = counters = None
+    if splits > 1:   # the merge's scratch: each split's (acc, m, l), a ticket per kv head
+        part = torch.empty(B * G * splits * (H // G) * Sq * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = torch.zeros(B * G, dtype=torch.int32, device=q.device)
+    elif splits == 0 and q.dtype == torch.bfloat16:   # prefill: its work queue's counter
+        counters = torch.zeros(1, dtype=torch.int32, device=q.device)
     fn = backend.load("flash_attention", "flash_attention_launch", _ARGS)
     err = fn(backend.ptr(q), backend.ptr(k), backend.ptr(v),
              None if kv_len is None else backend.ptr(kv_len), backend.ptr(out),
              backend.FLOAT_CODES[q.dtype], B, H, G, Sq, Skv, D, int(bool(causal)),
-             int(window or 0), float(softcap or 0.0), float(scale),
+             int(window or 0), float(softcap or 0.0), float(scale), splits, cols,
+             None if part is None else backend.ptr(part),
+             None if counters is None else backend.ptr(counters),
              backend.stream(q.device))
     backend.check("flash_attention", err)
     launches += 1
@@ -93,9 +130,10 @@ def flash_decode(q, k, v, kv_len, *, window=0, softcap=0.0, sm_scale=None,
                  use_kernel=None):
     """One token per row: q [B, H, D] x cache k, v [B, G, Skv, D] -> [B, H, D].
 
-    The same kernel with Sq = 1 (no padding to 8 rows as on the TPU): under
-    the offset-aware causal rule the one row sees the whole cache, up to
-    ``kv_len``."""
+    ``flash_attention`` with Sq = 1 (no padding to 8 rows as on the TPU),
+    so in bf16 the split-KV decode kernel wherever its rule takes the shape:
+    under the offset-aware causal rule the one row sees the whole cache, up
+    to ``kv_len``."""
     out = flash_attention(q[:, :, None, :], k, v, kv_len, causal=True, window=window,
                           softcap=softcap, sm_scale=sm_scale, use_kernel=use_kernel)
     return out[:, :, 0, :]

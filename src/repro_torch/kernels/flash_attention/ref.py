@@ -1,6 +1,7 @@
 """Plain PyTorch versions of flash attention, transcriptions of the JAX
 package's ``kernels/flash_attention/ref.py`` (``flash_attention_ref``) and
-``xla_flash.py`` (``flash_attention_blockwise``).
+``xla_flash.py`` (``flash_attention_blockwise``), and the split-KV decode
+kernel's split-and-merge arithmetic (``flash_decode_split``, for the tests).
 
 Semantics shared with the kernel (``csrc/flash_attention.cu``):
   q: [B, H, Sq, D]; k, v: [B, G, Skv, D] with H = G * rep (GQA: head h reads
@@ -89,4 +90,52 @@ def flash_attention_blockwise(q, k, v, *, causal=True, window=0, softcap=0.0,
         acc = acc * alpha + torch.einsum("bgrqk,bgkd->bgrqd", p, vb)
         m = m_new
     out = acc / l.clamp(min=1e-30)
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def split_ranges(splits: int, split_cols: int, Skv: int) -> list[tuple[int, int]]:
+    """The column range [lo, hi) of each split of an ``ops.plan_splits`` plan."""
+    return [(i * split_cols, min((i + 1) * split_cols, Skv)) for i in range(splits)]
+
+
+def flash_decode_split(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0.0,
+                       sm_scale=None, splits: int = 1, split_cols=None):
+    """The decode kernel's arithmetic written out: the cache's columns cut
+    into ``splits`` ranges of ``split_cols`` (``split_ranges``); each split's
+    masked softmax state (m, l, acc) in fp32, a split with no live column
+    giving (NEG, 0, 0); then the merge in split order: M the largest m,
+    L = sum over the splits with l > 0 of l * exp(m - M), and the output
+    sum of acc * exp(m - M) over those splits, divided by max(L, 1e-30).
+    q [B, H, Sq, D], k, v [B, G, Skv, D] as ``flash_attention_ref``."""
+    B, H, Sq, D = q.shape
+    G, Skv = k.shape[1], k.shape[2]
+    rep = H // G
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    cols = split_cols if split_cols is not None else -(-Skv // splits)
+    qg = q.reshape(B, G, rep, Sq, D).float() * scale
+    parts = []
+    for lo, hi in split_ranges(splits, cols, Skv):
+        if hi <= lo:    # past the cache: an empty partial
+            parts.append((torch.full((B, G, rep, Sq, 1), NEG, device=q.device),
+                          torch.zeros((B, G, rep, Sq, 1), device=q.device), 0.0))
+            continue
+        kb, vb = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qg, kb)
+        if softcap and softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _mask(Sq, torch.arange(lo, hi, device=q.device), Skv, causal, window, kv_len,
+                     q.device)[:, :, None]
+        s = torch.where(mask, s, NEG)
+        m = s.amax(-1, keepdim=True)
+        w = torch.where(mask, torch.exp(s - torch.where(m == NEG, 0.0, m)), 0.0)
+        parts.append((m, w.sum(-1, keepdim=True), torch.einsum("bgrqk,bgkd->bgrqd", w, vb)))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    mu = torch.where(M == NEG, 0.0, M)
+    L = torch.zeros_like(M)
+    acc = torch.zeros((B, G, rep, Sq, D), dtype=torch.float32, device=q.device)
+    for m, l, a in parts:
+        f = torch.where(l > 0, torch.exp(m - mu), 0.0)
+        L = L + l * f
+        acc = acc + a * f
+    out = acc / L.clamp(min=1e-30)
     return out.reshape(B, H, Sq, D).to(q.dtype)

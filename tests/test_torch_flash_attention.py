@@ -3,7 +3,9 @@ kernel in interpret mode, its ``flash_attention_ref`` and its scan-based
 ``xla_flash_attention``, on the same inputs made with numpy from a seed.
 
 Tolerances are those of ``tests/test_kernels.py``: rtol and atol 2e-5 in
-fp32 (the softmax sums run in another order), 2e-2 in bf16.
+fp32 (the softmax sums run in another order), 2e-2 in bf16. The split-KV
+decode kernel's arithmetic (``flash_decode_split``) is held to 1e-5 in fp32,
+and its planner (``ops.plan_splits``) to covering every cache column once.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,8 @@ from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro.kernels.flash_attention.xla_flash import xla_flash_attention
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_blockwise,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref, flash_decode_split,
+                                                     split_ranges)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -142,3 +145,69 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     dec = ops.flash_decode(q[:, :, 0], k, v, torch.tensor([700], dtype=torch.int32))
     assert dec.shape == (1, 2, 32)
     assert ops.launches == before
+
+
+# --- the split-KV decode kernel's arithmetic (ref.flash_decode_split) --------
+# fp32, 1e-5: the split softmax and its merge are the same sums in another
+# order.
+SPLIT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("splits", [1, 3, 16])
+@pytest.mark.parametrize("Skv,kv_len,window", [
+    (1000, (1, 1000), 0),        # kv_len 1: every split but the first is empty
+    (1000, (517, 333), 0),       # kv_len in the middle of a split
+    (256, (256, 100), 256),      # the local ring: Skv = window
+    (777, (777, 700), 64),       # a window at Sq = 1, Skv not a multiple of the split
+])
+def test_decode_split_matches_jax(splits, Skv, kv_len, window):
+    rng = np.random.default_rng(Skv + splits)
+    B, H, G, D = 2, 4, 2, 32
+    (jq, jk, jv), (q, k, v) = _inputs(rng, [(B, H, D), (B, G, Skv, D), (B, G, Skv, D)])
+    kl = np.array(kv_len, np.int32)
+    kw = dict(window=window, softcap=30.0)
+    got = flash_decode_split(q[:, :, None], k, v, torch.from_numpy(kl), splits=splits, **kw)
+    want = jax_ref(jq[:, :, None], jk, jv, kv_len=jnp.asarray(kl), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SPLIT_TOL, atol=SPLIT_TOL)
+    pallas = jax_flash_decode(jq, jk, jv, jnp.asarray(kl), use_kernel=True, interpret=True,
+                              block_k=Skv, **kw)    # its kv block must divide Skv
+    np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(pallas), rtol=SPLIT_TOL,
+                               atol=SPLIT_TOL)
+
+
+def test_decode_split_with_the_planners_plan_matches_jax():
+    """The plan the wrapper would take for these shapes, rows of several
+    query heads per kv head and Sq = 4, against JAX's reference."""
+    rng = np.random.default_rng(7)
+    B, H, G, Sq, Skv, D = 1, 8, 2, 4, 4000, 32
+    splits, cols = ops.plan_splits(B, H, G, Sq, Skv)
+    assert splits > 1 and cols % ops.DECODE_BLOCK_K == 0
+    (jq, jk, jv), (q, k, v) = _inputs(rng, [(B, H, Sq, D), (B, G, Skv, D), (B, G, Skv, D)])
+    kl = np.array([3001], np.int32)
+    got = flash_decode_split(q, k, v, torch.from_numpy(kl), splits=splits, split_cols=cols,
+                             window=500)
+    want = jax_ref(jq, jk, jv, kv_len=jnp.asarray(kl), window=500)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SPLIT_TOL, atol=SPLIT_TOL)
+
+
+@pytest.mark.parametrize("B,H,G,Sq,Skv", [
+    (16, 8, 4, 1, 32768), (16, 8, 4, 1, 4096), (16, 40, 8, 1, 32768), (4, 8, 4, 1, 32768),
+    (1, 8, 1, 1, 32768), (2, 8, 4, 1, 1000), (3, 6, 2, 3, 999), (1, 16, 2, 8, 64),
+    (2, 4, 4, 1, 1), (1, 1, 1, 1, 63),
+])
+def test_split_planner_covers_every_column_once(B, H, G, Sq, Skv):
+    splits, cols = ops.plan_splits(B, H, G, Sq, Skv)
+    assert 1 <= splits <= ops.MAX_SPLITS and cols % ops.DECODE_BLOCK_K == 0
+    seen = np.zeros(Skv, np.int64)
+    for lo, hi in split_ranges(splits, cols, Skv):
+        assert lo < hi          # no empty split by construction
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,H,G,Sq", [(1, 8, 4, 9), (1, 8, 4, 2048), (1, 32, 2, 8),
+                                      (2, 72, 1, 1)])
+def test_split_planner_leaves_large_query_blocks_to_prefill(B, H, G, Sq):
+    """More than 8 query rows per head, or more than 64 rows per kv head:
+    the prefill kernel (no split)."""
+    assert ops.plan_splits(B, H, G, Sq, 4096) == (0, 0)

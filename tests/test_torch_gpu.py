@@ -286,6 +286,19 @@ FA_CASES = [  # B, H, G, Sq, Skv, D, causal, window, softcap, kv_len
     (2, 8, 4, 1, 4096, 128, True, 0, 0.0, (4096, 2049)),    # decode, long cache
     (2, 15, 5, 37, 211, 64, True, 50, 0.0, (150, 211)),     # offset, window, kv_len
     (2, 4, 2, 64, 40, 32, True, 0, 0.0, None),              # Sq > Skv: rows of 0
+    # the bf16 kernels' edges: the prefill kernel (wgmma, TMA ring) and the
+    # split-KV decode kernel (Sq <= 8 and rep * Sq <= 64)
+    (1, 4, 2, 100, 333, 64, True, 0, 0.0, None),            # Skv no multiple of a kv tile
+    (2, 8, 4, 1, 1000, 256, True, 0, 50.0, (1000, 517)),    # decode: Skv no multiple of a split
+    (2, 4, 2, 45, 300, 128, True, 0, 0.0, None),            # Sq in 2..63: a partial q tile
+    (2, 8, 2, 1, 777, 32, True, 0, 0.0, (777, 300)),        # decode at D = 32
+    (1, 4, 4, 200, 200, 32, True, 64, 30.0, None),          # prefill at D = 32, 64-byte swizzle
+    (1, 8, 1, 1, 32768, 128, True, 0, 0.0, None),           # B * G = 1: 64 splits
+    (2, 4, 2, 1, 2048, 64, True, 0, 0.0, (1, 2048)),        # kv_len 1 and Skv in one batch
+    (2, 8, 4, 9, 1500, 256, True, 0, 50.0, (1500, 800)),    # Sq 9: just above the decode rule
+    (1, 16, 2, 8, 1000, 128, True, 64, 0.0, None),          # decode, 64 rows of one kv head
+    (1, 32, 2, 8, 512, 64, True, 0, 0.0, (400,)),           # Sq 8 but rep * Sq > 64: prefill
+    (2, 6, 2, 3, 900, 64, True, 100, 0.0, (900, 450)),      # decode, Sq 3 with a window
 ]
 
 
@@ -310,6 +323,64 @@ def test_flash_attention_kernel_matches_plain(case, dtype):
     if Sq == 1:
         dec = fa_ops.flash_decode(q[:, :, 0], k, v, kl, softcap=softcap)
         torch.testing.assert_close(dec, got[:, :, 0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 4, 300, 300, 256), (16, 8, 4, 1, 4096, 256),
+                                   (4, 40, 8, 1, 3000, 128)])
+def test_flash_attention_kernel_repeats_bit_for_bit(shape):
+    """Two identical calls give the same bits: prefill, and decode with its
+    split merge (a fixed order, no float atomics)."""
+    _card()
+    B, H, G, Sq, Skv, D = shape
+    rng = np.random.default_rng(Skv)
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=torch.bfloat16, device="cuda")
+               for s in ((B, H, Sq, D), (B, G, Skv, D), (B, G, Skv, D)))
+    kl = torch.tensor(rng.integers(1, Skv + 1, B), dtype=torch.int32, device="cuda")
+    if Sq == 1:
+        assert fa_ops.plan_splits(B, H, G, Sq, Skv)[0] > 1
+    first = fa_ops.flash_attention(q, k, v, kl, softcap=50.0)
+    second = fa_ops.flash_attention(q, k, v, kl, softcap=50.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(512, 512), (1, 4096)])
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+def test_flash_attention_softcap_near_the_cap(Sq, Skv, spread):
+    """Scores s with s / softcap at 1.2 and 3.6, all within a few percent of
+    each other: the tanh saturates and the softmax weighs many columns
+    alike, so the error of the kernel's tanh.approx.f32 weighs most. Each
+    output row stays within 1.25e-2 of its own norm (chip_smoke.py's
+    FLASH_ROW_TOL in bf16), as at ordinary scores."""
+    _card()
+    rng = np.random.default_rng(int(spread * 10) + Sq)
+    B, H, G, D = 2, 8, 4, 256
+    base = rng.normal(size=(1, 1, 1, D))
+    q = rng.normal(size=(B, H, Sq, D)) * 0.1 + base * spread
+    k = rng.normal(size=(B, G, Skv, D)) * 0.3 + base * 4
+    q, k, v = (torch.tensor(x, dtype=torch.bfloat16, device="cuda")
+               for x in (q, k, rng.normal(size=(B, G, Skv, D))))
+    got = fa_ops.flash_attention(q, k, v, softcap=50.0)
+    want = fa_ops.flash_attention(q, k, v, softcap=50.0, use_kernel=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    err = ((got.double() - want.double()).norm(dim=-1) / want.double().norm(dim=-1)).max()
+    assert float(err) <= 1.25e-2
+
+
+def test_flash_decode_counts_one_launch():
+    _card()
+    rng = np.random.default_rng(3)
+    q = torch.tensor(rng.normal(size=(4, 8, 256)), dtype=torch.bfloat16, device="cuda")
+    k, v = (torch.tensor(rng.normal(size=(4, 4, 5000, 256)), dtype=torch.bfloat16,
+                         device="cuda") for _ in range(2))
+    kl = torch.tensor([5000, 1, 2500, 4097], dtype=torch.int32, device="cuda")
+    before = fa_ops.launches
+    got = fa_ops.flash_decode(q, k, v, kl, softcap=50.0)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ops.flash_decode(q, k, v, kl, softcap=50.0, use_kernel=False)
+    assert fa_ops.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take():
