@@ -43,7 +43,15 @@ Phases, each printing its lines before the next starts:
      the kernel's device time per launch from ``torch.profiler``, and
      CUDA-event times per call of the wrapper (host-inclusive) and of the
      plain version (3 calls only for the plain heap_topk and packed scan,
-     which take up to a second each);
+     which take up to a second each). The per-tile conjunctive_scan kernels
+     at B=64 T=128; the one-launch conjunctive_topk kernels on the batch's
+     multi-term queries (k=10, tile=128) at the full cap (4,096 tiles) and
+     at PLAIN_TILES held against topk_walk, a chunked torch version, and at
+     PLAIN_TILES raw and PACKED_PLAIN_TILES "ef" and "bitpack" against
+     their plain tile loop (and topk_walk there too), with the longest
+     lane's candidate count beside each bound; and the chunk-cutting cases
+     (a cap of 16 candidates at k = 1, 10, 128, a dead lane and an empty
+     needed span) on every codec;
   7. the QAC path: parse_queries -> QACFrontend.complete on 256 sampled
      partial queries through the kernel route, the per-pop RMQ route and the
      compressed-postings routes (``postings_codec="ef"`` and ``"bitpack"``),
@@ -53,7 +61,8 @@ Phases, each printing its lines before the next starts:
      batch on every route but those two, the answers also checked
      against a brute-force host search; each route's kernel launch counts on
      the main batch, counted from 0 just before its call and read just
-     after; then one traced call of the kernel route and of the "ef" route
+     after: heap_topk (or rmq_query) and one conjunctive_topk launch per
+     multi-term dispatch; then one traced call of the kernel route and of the "ef" route
      (``torch.profiler``, CUDA activity) for the device's busy share and the
      kernels that take its time;
   8. one JSON line naming every kernel with its launches, times and bound.
@@ -64,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -83,6 +93,7 @@ CODECS = ("ef", "bitpack")
 MAX_PACKED_READ = 12 + 8 + 32      # directory, two payload words, the EF bitmap
 PLAIN_QUERIES = 32                 # the plain route's share of the main batch
 PLAIN_TILES = 256                  # its multi-term tile cap, and the capped kernel route's
+PACKED_PLAIN_TILES = 16            # the packed plain top-k's cap in phase 6 (~0.6 s a tile "ef")
 KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
               #          kernel it replaces, the frontend routes whose
               #          main-batch runs launch it)
@@ -94,12 +105,19 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
                   "src/repro/kernels/heap_topk/kernel.py:186", ("kernels",)),
     "conjunctive_scan": ("repro_torch.kernels.intersect.ops", "launches",
                          "src/repro_torch/csrc/intersect.cu",
+                         "src/repro/kernels/intersect/kernel.py:137", ()),
+    "conjunctive_topk": ("repro_torch.kernels.intersect.ops", "topk_launches",
+                         "src/repro_torch/csrc/intersect.cu",
                          "src/repro/kernels/intersect/kernel.py:137", ("kernels",)),
     "heap_topk_packed": ("repro_torch.kernels.heap_topk.ops", "packed_launches",
                          "src/repro_torch/csrc/heap_topk.cu",
                          "src/repro/kernels/heap_topk/kernel.py:72", CODECS),
     "conjunctive_scan_packed": ("repro_torch.kernels.intersect.ops",
                                 "packed_launches",
+                                "src/repro_torch/csrc/intersect.cu",
+                                "src/repro/kernels/intersect/kernel.py:110", ()),
+    "conjunctive_topk_packed": ("repro_torch.kernels.intersect.ops",
+                                "topk_packed_launches",
                                 "src/repro_torch/csrc/intersect.cu",
                                 "src/repro/kernels/intersect/kernel.py:110", CODECS),
     "fm_pairwise": ("repro_torch.kernels.fm_pairwise.ops", "launches",
@@ -110,12 +128,13 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
                         "src/repro/kernels/flash_attention/kernel.py:93", ("lm",)),
 }
 # the kernels each frontend route's main-batch run launches, and no others
-ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_scan"),
-                 "kernels_capped": ("heap_topk", "conjunctive_scan"),
-                 "per_pop_rmq": ("rmq_query", "conjunctive_scan"),
+# (the per-tile conjunctive_scan kernels are held in phase 6, off the path)
+ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_topk"),
+                 "kernels_capped": ("heap_topk", "conjunctive_topk"),
+                 "per_pop_rmq": ("rmq_query", "conjunctive_topk"),
                  "plain": (),
-                 "ef": ("heap_topk_packed", "conjunctive_scan_packed"),
-                 "bitpack": ("heap_topk_packed", "conjunctive_scan_packed"),
+                 "ef": ("heap_topk_packed", "conjunctive_topk_packed"),
+                 "bitpack": ("heap_topk_packed", "conjunctive_topk_packed"),
                  "recsys": ("fm_pairwise",),
                  "lm": ("flash_attention",)}
 # the __global__ each wrapper launches, as the profiler names it
@@ -128,6 +147,11 @@ TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
                   "conjunctive_scan_kernel<qac::PackedLookup<true>",
               ("conjunctive_scan_packed", "bitpack"):
                   "conjunctive_scan_kernel<qac::PackedLookup<false>",
+              "conjunctive_topk": "conjunctive_topk_kernel<qac::RawLookup>",
+              ("conjunctive_topk_packed", "ef"):
+                  "conjunctive_topk_kernel<qac::PackedLookup<true>",
+              ("conjunctive_topk_packed", "bitpack"):
+                  "conjunctive_topk_kernel<qac::PackedLookup<false>",
               "fm_pairwise": "fm_pairwise_kernel<",   # <float> or <__nv_bfloat16>
               # flash_attention_kernel<D> (fp32) or flash_attention_tc_kernel<D, decode,
               # softcap> (bf16: prefill, or split-KV decode with its merge in the launch)
@@ -384,6 +408,59 @@ def probe_positions(torch, postings, cands, starts, ends, iters):
     return lo.clamp(0, n - 1)
 
 
+def topk_walk(torch, postings, lanes, fwd_terms, tl, th, k, cap, iters, pk=None,
+              count=True, chunk=8192):
+    """The multi-term engine's answer at cap ``cap``, worked out with torch
+    over each lane's candidates in chunks, all lanes at once: (int32[B, k],
+    bytes conjunctive_topk needs on these lanes, the longest lane's candidate
+    count); with ``count`` False only the answer, the bytes 0. A live lane
+    reads its inputs (5 + 2P ints) and its candidates up to ``stop``, the
+    position after its k-th hit, else min(d_len, cap): 4 B each, the forward
+    row (4·M B) of each in [0, N), and, for each forward-passing candidate,
+    the posting at its insertion point (4 B raw, else its packed read) in
+    each needed span until the first that misses; a dead lane reads its flag
+    alone; 4·B·k of output."""
+    d_start, d_end, starts, ends, dead = lanes
+    B, P = starts.shape
+    n, (N, M) = postings.numel(), fwd_terms.shape
+    dev = postings.device
+    limit = torch.where(dead, 0, (d_end - d_start).clamp(0, cap)).long()
+    need = (ends > starts)[:, None, :]                              # [B, 1, P]
+    found = torch.zeros(B, dtype=torch.long, device=dev)
+    stop = limit.clone()
+    out = torch.full((B, k + 1), INF, dtype=torch.int32, device=dev)   # column k: the misses
+    n_dead = int(dead.sum())
+    total = 4 * n_dead + (4 * 5 + 8 * P) * (B - n_dead) + 4 * B * k if count else 0
+    for c0 in range(0, int(limit.max()), chunk):
+        pos = c0 + torch.arange(chunk, device=dev)
+        inr = pos[None, :] < limit[:, None]                         # [B, C]
+        cand = torch.where(inr, postings[(d_start.long()[:, None] + pos).clamp(max=n - 1)], INF)
+        in_fwd = inr & (cand >= 0) & (cand < N)
+        rows = torch.where(in_fwd[..., None], fwd_terms[cand.clamp(0, N - 1)], 0)
+        fwd_ok = inr & ((rows >= tl[:, None, None]) & (rows < th[:, None, None])).any(2)
+        at = probe_positions(torch, postings, cand, starts, ends, iters)   # [B, C, P]
+        holds = ((at < ends[:, None, :]) & (postings[at] == cand[..., None])) | ~need
+        hit = (fwd_ok & holds.all(2)).long()
+        before = found[:, None] + hit.cumsum(1) - hit               # hits ahead of each
+        counted = inr & (before < k)
+        keep = counted & (hit == 1)
+        out.scatter_(1, torch.where(keep, before, k), torch.where(keep, cand, INF))
+        if count:
+            # a span is probed while every needed span before it holds
+            first = torch.ones_like(holds[..., :1])
+            reached = torch.cat([first, holds[..., :-1]], 2).int().cumprod(2) > 0
+            probed = (counted & fwd_ok)[..., None] & need & reached
+            total += 4 * int(counted.sum()) + 4 * M * int((counted & in_fwd).sum()) + (
+                4 * int(probed.sum()) if pk is None else
+                int(packed_read_bytes(torch, pk, at[probed]).sum()))
+        kth = keep & (before == k - 1)
+        stop = torch.where(kth.any(1), c0 + kth.long().argmax(1) + 1, stop)
+        found += hit.sum(1)
+        if bool(((found >= k) | (limit <= c0 + chunk)).all()):
+            break
+    return out[:, :k], total, int(stop.max())
+
+
 # --------------------------------------------------------------------------
 # brute-force host reference
 # --------------------------------------------------------------------------
@@ -622,8 +699,6 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
     shapes; gemma2-2b at full width in fp32 through the kernel and the plain
     route, then served in bf16. Returns the launch counts of the main path:
     one bf16 ``prefill_step`` and one bf16 ``decode_step``."""
-    import functools
-
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
@@ -958,8 +1033,11 @@ def main() -> int:
     from repro_torch.core import build_qac_index, parse_queries
     from repro_torch.core.codecs import pack_postings, unpack_postings
     from repro_torch.kernels.heap_topk.ref import heap_topk_ref
+    from repro_torch.core.search import conjunctive_lanes
     from repro_torch.kernels.intersect.ref import (conjunctive_scan_packed_ref,
-                                                   conjunctive_scan_ref)
+                                                   conjunctive_scan_ref,
+                                                   conjunctive_topk_packed_ref,
+                                                   conjunctive_topk_ref)
     from repro_torch.kernels.rmq.ref import rmq_window_batch
     from repro_torch.serve import QACFrontend
 
@@ -1216,6 +1294,73 @@ def main() -> int:
         say(f"[kernel] conjunctive_scan_packed[{codec}] {case}: {timing(c)} "
             f"({b_scan} B) | equal")
 
+    # conjunctive_topk: the multi-term engine in one launch, on the batch's
+    # multi-term queries (k=10, tile=128), the path's cap (4,096 tiles) first.
+    # Its plain version, the host-synced tile loop, runs at max_tiles=
+    # PLAIN_TILES raw and PACKED_PLAIN_TILES packed (the packed plain scan
+    # takes up to ~0.6 s a tile; 16 tiles cross the kernel's first chunk);
+    # at the longer caps the plain version is topk_walk, held equal to the
+    # tile loop at the tile loop's cap
+    mq = torch.nonzero(plen > 0)[:, 0]
+    lanes = conjunctive_lanes(idx, pids[mq], plen[mq], tl[mq], th[mq])
+    longest = int(torch.where(lanes[3] > lanes[2], lanes[3] - lanes[2], 0).max())
+    iters = (1 << max(1, (max(longest, 1) - 1).bit_length())).bit_length()  # as the frontend
+    kargs = (*lanes, comps.fwd_terms, tl[mq], th[mq])
+
+    def topk(codec, fn_args, plain=False, **kw):
+        if codec is None:
+            fn = conjunctive_topk_ref if plain else ops["conjunctive_topk"].conjunctive_topk
+            return fn(idx.postings, *fn_args, **kw)
+        fn = (conjunctive_topk_packed_ref if plain
+              else ops["conjunctive_topk_packed"].conjunctive_topk_packed)
+        return fn(idx.postings, packs[codec], *fn_args, **kw)
+
+    for codec in (None, *CODECS):
+        name = "conjunctive_topk" if codec is None else "conjunctive_topk_packed"
+        loop_tiles = PLAIN_TILES if codec is None else PACKED_PLAIN_TILES
+        for max_tiles in dict.fromkeys((4096, PLAIN_TILES, loop_tiles)):
+            kw = dict(k=10, tile=128, max_tiles=max_tiles, iters=iters)
+            walk = functools.partial(topk_walk, torch, idx.postings, lanes, comps.fwd_terms,
+                                     tl[mq], th[mq], 10, 128 * max_tiles, iters)
+            answer, b_topk, stop = walk(None if codec is None else packs[codec])
+            if max_tiles == loop_tiles:
+                plain, held_by = (lambda: topk(codec, kargs, plain=True, **kw)), "tile loop"
+            else:
+                plain, held_by = (lambda: walk(count=False)[0]), "topk_walk"
+            case = f"B={mq.numel()} k=10 tile=128 max_tiles={max_tiles} iters={iters}"
+            c = hold(name, lambda: topk(codec, kargs, **kw), plain, torch.equal, b_topk, 20,
+                     case, codec, plain_reps=1, trace_reps=50)
+            c["longest_lane"], c["plain"] = stop, held_by
+            if held_by == "tile loop" and not torch.equal(answer, topk(codec, kargs, **kw)):
+                fail(f"{name}[{codec or 'raw'}] {case}: topk_walk disagrees with the tile loop")
+            say(f"[kernel] {name}[{codec or 'raw'}] {case}: {timing(c)} ({b_topk} B; "
+                f"longest lane {stop} candidates) | equal to its plain version, {held_by}")
+    # the cases that stress the chunking: a cap of 16 candidates (inside the
+    # kernel's first chunk) at k = 1, 10, 128, with a lane that needs an
+    # empty list (dead, as conjunctive_lanes marks it) and one whose empty
+    # needed span is only skipped, both over the longest driver list
+    d_start, d_end, starts, ends, dead = lanes
+    top = int(torch.argmax(torch.where(dead, 0, d_end - d_start)))
+    slot = int(torch.argmax((ends[top] > starts[top]).int()))
+    empty_ends = ends[top:top + 1].clone()
+    empty_ends[0, slot] = starts[top, slot]
+    two = lambda t: torch.cat([t, t[top:top + 1], t[top:top + 1]])
+    xargs = (two(d_start), two(d_end), two(starts), torch.cat([ends, empty_ends, empty_ends]),
+             torch.cat([dead, torch.tensor([True, False], device=dev)]), comps.fwd_terms,
+             two(tl[mq]), two(th[mq]))
+    n_cases = 0
+    for codec in (None, *CODECS):
+        for k in (1, 10, 128):
+            kw = dict(k=k, tile=8, max_tiles=2, iters=iters)
+            got, want = topk(codec, xargs, **kw), topk(codec, xargs, plain=True, **kw)
+            if not torch.equal(got, want) or not bool((got[-2] == INF).all()):
+                fail(f"conjunctive_topk[{codec or 'raw'}] k={k} tile=8 max_tiles=2: kernel "
+                     "disagrees with its plain version")
+            n_cases += 1
+    say(f"[kernel] conjunctive_topk raw/ef/bitpack at tile=8 max_tiles=2 (cap 16), k = 1, "
+        f"10, 128, B={mq.numel() + 2} with a dead and an empty-span lane: {n_cases} cases "
+        "equal to the plain version")
+
     lap(6)
 
     # ---- 7. the QAC path ----------------------------------------------------
@@ -1238,7 +1383,7 @@ def main() -> int:
     capped = ("plain", "kernels_capped")
     served = {route: args.batch for route in fes} | dict.fromkeys(
         capped, min(PLAIN_QUERIES, args.batch))
-    answers, per_k, per_query_us = {}, {}, {}
+    answers, per_k, per_query_us, multi_dispatches = {}, {}, {}, {}
     # phase 5 loaded every kernel and warmed PyTorch's own ones, so each
     # route's first call is timed as it comes. Each route's main-batch run is
     # counted on its own: the counts go to 0 just before it, are read just
@@ -1246,10 +1391,12 @@ def main() -> int:
     for route, fe in fes.items():
         reset_counts()
         torch.cuda.synchronize()
+        fe.begin_dispatch_log()
         t0 = time.perf_counter()
         answers[route] = fe.complete(*(x[:served[route]] for x in inputs))
         per_query_us[route] = (time.perf_counter() - t0) / served[route] * 1e6
         counted[route] = read_counts()
+        multi_dispatches[route] = sum(key[0] == "multi" for key, _ in fe.end_dispatch_log())
         t_k = ""
         if route not in capped:
             t0 = time.perf_counter()
@@ -1263,12 +1410,18 @@ def main() -> int:
     # launches heap_topk only if they hold a single-term query
     want_kernels = dict(ROUTE_KERNELS)
     if not fes["kernels_capped"].stats["single_queries"]:
-        want_kernels["kernels_capped"] = ("conjunctive_scan",)
+        want_kernels["kernels_capped"] = ("conjunctive_topk",)
     for route, counts in counted.items():
         for name, c in counts.items():
             if bool(c) != (name in want_kernels[route]):
                 fail(f"route {route} launched {name} {c} times: it launches exactly "
                      f"{want_kernels[route]} ({counts})")
+            if (name.startswith("conjunctive_topk") and name in want_kernels[route]
+                    and c != multi_dispatches.get(route, c)):
+                fail(f"route {route} launched {name} {c} times for "
+                     f"{multi_dispatches[route]} multi-term dispatches")
+    say(f"[path] multi-term dispatches on the main batch {multi_dispatches}: one "
+        "conjunctive_topk launch each on every kernel route")
     a, a_k = answers["kernels"], per_k["kernels"]
     if a.shape != (args.batch, 10) or a.dtype != np.int32 or a_k.shape != (64, int(kmix.max())):
         fail(f"unexpected answer shapes {a.shape} {a.dtype} {a_k.shape}")
@@ -1326,7 +1479,7 @@ def main() -> int:
     say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []
     for name, (_, _, src, replaces, routes) in KERNELS.items():
-        first = {key: v for key, v in results[name][0].items() if key != "case"}
+        first = results[name][0]      # the headline: its first case, which names it
         line.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[name],
                      "launches_by_route": {r: counted[r][name] for r in routes},

@@ -11,7 +11,8 @@ Kernel routing on the card (``use_kernel=True``, the default there): the
 single-term engine runs the whole trip loop in the ``heap_topk`` kernel
 unless the caller passes ``heap_kernel=False``, and then it runs the same
 loop one pop at a time with each pop's RMQ in the ``rmq`` kernel; the
-multi-term engine probes with the ``intersect`` kernel. ``use_kernel=False``
+multi-term engine runs its whole candidate loop in one launch of the
+``intersect`` top-k kernel. ``use_kernel=False``
 runs the plain PyTorch versions on whatever device the index is on. Routing
 never changes answers. The index lives in device memory, so no route is
 gated on its size; a routing rule measured on the card is still to come.
@@ -116,35 +117,17 @@ def single_term_topk_batch(index: InvertedIndex, rmq_minimal: RangeMin,
     return out
 
 
-def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
-                            prefix_len, term_lo, term_hi, k: int, *,
-                            tile: int = 128, max_tiles: int = 4096,
-                            use_kernel: bool = False, probe_iters: int = 0,
-                            postings_codec: str | None = None):
-    """Conjunctive top-k: prefix_ids int32[B, PMAX], the rest int32[B].
+def conjunctive_lanes(index: InvertedIndex, prefix_ids, prefix_len, term_lo,
+                      term_hi):
+    """The multi-term engine's lanes: (d_start, d_end, starts, ends, dead).
 
-    The shortest prefix list drives: each step takes one ``tile``-wide chunk
-    of it for every lane and probes the other lists' ``[start, end)`` spans
-    in ``postings`` with ``conjunctive_scan`` (the CUDA kernel with
-    ``use_kernel``, else its plain version; ``conjunctive_scan_packed``
-    over ``index.packed`` under an explicit ``postings_codec``, while the
-    candidates still come from the raw postings). An empty list that a lane needs
-    kills the lane. Per-lane progress is masked: a finished lane stops
-    advancing while others continue. The loop runs while any lane is active,
-    a host sync per tile. ``probe_iters`` caps the binary-search depth
-    (callers that know the longest probed list pass its bound); 0 uses
-    ``log2(n_postings) + 1``.
+    The shortest prefix list of each lane drives (the first minimum): its
+    span ``[d_start, d_end)`` of the postings gives the candidates.
+    ``starts``/``ends`` [B, PMAX] are the other prefix lists' spans, 0/0 on a
+    slot the lane does not need. ``dead`` marks a lane that answers all INF:
+    an empty list it needs, an empty suffix range, no prefix, or a prefix id
+    0 (unknown term).
     """
-    from ..kernels.intersect import ops, ref
-
-    packed = _resolve_packed(index, postings_codec)
-    if packed is None:
-        scan = ops.conjunctive_scan if use_kernel else ref.conjunctive_scan_ref
-        probed = index.postings
-    else:
-        scan = (ops.conjunctive_scan_packed if use_kernel
-                else ref.conjunctive_scan_packed_ref)
-        probed = packed
     dev = prefix_ids.device
     B, PMAX = prefix_ids.shape
     rows = torch.arange(B, device=dev)
@@ -153,38 +136,50 @@ def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
     starts, ends = index.list_bounds(prefix_ids)                   # [B, PMAX]
     lens = torch.where(valid_t, ends - starts, INT32_MAX)
     driver = torch.argmin(lens, dim=1)                             # first minimum
-    d_start = starts[rows, driver]
-    d_end = ends[rows, driver]
-    d_len = d_end - d_start
-    n_post = index.postings.shape[0]
-    iters = probe_iters or min(31, max(1, n_post.bit_length()))
-    lane = torch.arange(tile, dtype=torch.int32, device=dev)
     need = valid_t & (slots[None, :] != driver[:, None])           # [B, PMAX]
-    k_starts = torch.where(need, starts, 0).to(torch.int32)
-    k_ends = torch.where(need, ends, 0).to(torch.int32)
     lane_dead = (need & (ends == starts)).any(dim=1)               # [B]
-
-    t = torch.zeros(B, dtype=torch.int32, device=dev)
-    found = torch.zeros(B, dtype=torch.int32, device=dev)
-    res = torch.full((B, k + 1), INF_DOCID, dtype=torch.int32, device=dev)
-    while True:
-        active = (t * tile < d_len) & (found < k) & (t < max_tiles)
-        if not bool(active.any()):
-            break
-        base = d_start + t * tile
-        in_list = (base[:, None] + lane[None, :]) < d_end[:, None]
-        cand = index.postings[(base[:, None] + lane[None, :]).clamp(max=n_post - 1)]
-        mask = scan(torch.where(in_list, cand, INF_DOCID), k_starts, k_ends,
-                    probed, completions.fwd_terms, term_lo, term_hi,
-                    iters=iters)
-        hits = mask & in_list & ~lane_dead[:, None] & active[:, None]
-        # first-k compaction in docid order (per lane); column k is the sink
-        pos_out = found[:, None] + torch.cumsum(hits.to(torch.int32), 1) - 1
-        write = hits & (pos_out < k)
-        res.scatter_(1, torch.where(write, pos_out, k).to(torch.int64),
-                     torch.where(write, cand, INF_DOCID))
-        found = (found + hits.sum(dim=1, dtype=torch.int32)).clamp(max=k)
-        t = torch.where(active, t + 1, t)
     bad = ((term_lo >= term_hi) | (prefix_len <= 0)
            | (valid_t & (prefix_ids == 0)).any(dim=1))
-    return torch.where(bad[:, None], INF_DOCID, res[:, :k])
+    return (starts[rows, driver], ends[rows, driver],
+            torch.where(need, starts, 0).to(torch.int32),
+            torch.where(need, ends, 0).to(torch.int32), lane_dead | bad)
+
+
+def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
+                            prefix_len, term_lo, term_hi, k: int, *,
+                            tile: int = 128, max_tiles: int = 4096,
+                            use_kernel: bool = False, probe_iters: int = 0,
+                            postings_codec: str | None = None):
+    """Conjunctive top-k: prefix_ids int32[B, PMAX], the rest int32[B].
+
+    The shortest prefix list drives (``conjunctive_lanes``): each lane's
+    answer is its first k candidates, in driver-list order, that lie in
+    every other prefix list's ``[start, end)`` span of ``postings`` and
+    whose forward row holds a suffix term, among the first
+    ``max_tiles * tile`` candidates of its driver list. With ``use_kernel``
+    the whole candidate loop is one launch of ``conjunctive_topk`` (or
+    ``conjunctive_topk_packed`` over ``index.packed`` under an explicit
+    ``postings_codec``; the candidates still come from the raw postings),
+    with no host sync. Else the plain versions run the JAX package's tile
+    loop: one ``tile``-wide chunk of every lane a step, probed with
+    ``conjunctive_scan_ref`` (or its packed form), per-lane progress masked,
+    a host sync a step. Both give the same answers. An empty list that a
+    lane needs kills the lane. ``probe_iters`` caps the binary-search depth
+    (callers that know the longest probed list pass its bound); 0 uses
+    ``log2(n_postings) + 1``.
+    """
+    from ..kernels.intersect import ops, ref
+
+    packed = _resolve_packed(index, postings_codec)
+    n_post = index.postings.shape[0]
+    iters = probe_iters or min(31, max(1, n_post.bit_length()))
+    lanes = conjunctive_lanes(index, prefix_ids, prefix_len, term_lo, term_hi)
+    kw = dict(k=k, tile=tile, max_tiles=max_tiles, iters=iters)
+    if packed is None:
+        topk = ops.conjunctive_topk if use_kernel else ref.conjunctive_topk_ref
+        return topk(index.postings, *lanes, completions.fwd_terms, term_lo,
+                    term_hi, **kw)
+    topk = (ops.conjunctive_topk_packed if use_kernel
+            else ref.conjunctive_topk_packed_ref)
+    return topk(index.postings, packed, *lanes, completions.fwd_terms, term_lo,
+                term_hi, **kw)

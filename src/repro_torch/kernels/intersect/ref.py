@@ -17,6 +17,17 @@ term_lo/term_hi int32[B]. Output: bool[B, T].
 ``conjunctive_scan_packed_ref`` is the same loop over a ``PackedPostings``
 (``packed_lookup`` decodes in place of the raw reads): the plain version of
 the packed kernel, as the JAX package's ``conjunctive_scan_packed_ref``.
+
+``conjunctive_topk_ref`` and ``conjunctive_topk_packed_ref`` are the plain
+versions of the top-k kernels: the multi-term engine's tile loop (the JAX
+package's ``core/search.py::conjunctive_multi_batch`` body), one
+``tile``-wide chunk of every lane's driver list a step, probed by the scan
+above, first-k compaction in driver-list order, a lane active while
+``t * tile < d_len``, ``found < k`` and ``t < max_tiles``; a host sync a
+step. Lane inputs: d_start/d_end int32[B] (the driver list's span of the
+raw ``postings``, which give the candidates on every codec), the needed
+spans starts/ends int32[B, P], dead bool[B] (the lane answers all INF).
+Output: int32[B, k], INF-padded.
 """
 from __future__ import annotations
 
@@ -67,3 +78,49 @@ def _scan(cands, starts, ends, lookup, fwd_terms, term_lo, term_hi, iters):
     fwd_ok = ((rows >= term_lo[:, None, None])
               & (rows < term_hi[:, None, None])).any(dim=2)
     return member & fwd_ok & (cands != INF)
+
+
+def conjunctive_topk_ref(postings, d_start, d_end, starts, ends, dead,
+                         fwd_terms, term_lo, term_hi, *, k: int, tile: int,
+                         max_tiles: int, iters: int):
+    scan = lambda cand: conjunctive_scan_ref(cand, starts, ends, postings,
+                                             fwd_terms, term_lo, term_hi,
+                                             iters=iters)
+    return _topk(postings, d_start, d_end, dead, scan, k, tile, max_tiles)
+
+
+def conjunctive_topk_packed_ref(postings, packed, d_start, d_end, starts, ends,
+                                dead, fwd_terms, term_lo, term_hi, *, k: int,
+                                tile: int, max_tiles: int, iters: int):
+    scan = lambda cand: conjunctive_scan_packed_ref(cand, starts, ends, packed,
+                                                    fwd_terms, term_lo, term_hi,
+                                                    iters=iters)
+    return _topk(postings, d_start, d_end, dead, scan, k, tile, max_tiles)
+
+
+def _topk(postings, d_start, d_end, dead, scan, k, tile, max_tiles):
+    dev = d_start.device
+    B = d_start.shape[0]
+    n_post = postings.shape[0]
+    d_len = d_end - d_start
+    lane = torch.arange(tile, dtype=torch.int32, device=dev)
+    t = torch.zeros(B, dtype=torch.int32, device=dev)
+    found = torch.zeros(B, dtype=torch.int32, device=dev)
+    res = torch.full((B, k + 1), INF, dtype=torch.int32, device=dev)
+    while True:
+        active = (t * tile < d_len) & (found < k) & (t < max_tiles)
+        if not bool(active.any()):
+            break
+        base = d_start + t * tile
+        in_list = (base[:, None] + lane[None, :]) < d_end[:, None]
+        cand = postings[(base[:, None] + lane[None, :]).clamp(max=n_post - 1)]
+        mask = scan(torch.where(in_list, cand, INF))
+        hits = mask & in_list & ~dead[:, None] & active[:, None]
+        # first-k compaction in docid order (per lane); column k is the sink
+        pos_out = found[:, None] + torch.cumsum(hits.to(torch.int32), 1) - 1
+        write = hits & (pos_out < k)
+        res.scatter_(1, torch.where(write, pos_out, k).to(torch.int64),
+                     torch.where(write, cand, INF))
+        found = (found + hits.sum(dim=1, dtype=torch.int32)).clamp(max=k)
+        t = torch.where(active, t + 1, t)
+    return res[:, :k]

@@ -3,12 +3,15 @@ package and carried into the port on identical arrays, plus partial-query
 batches. Inputs are made from seeds with numpy and passed between the two
 packages as numpy arrays."""
 import dataclasses
+import functools
 
+import jax
 import numpy as np
 import torch
 
 from repro.core import build_qac_index
 from repro.core.codecs import pack_postings
+from repro.core.search import conjunctive_multi_batch as jax_multi
 from repro.text import SynthLogConfig, generate_query_log
 from repro_torch.convert import COMPONENTS, qac_index_from_arrays
 
@@ -60,6 +63,39 @@ def with_codec(jq, codec):
         pk = pack_postings(np.asarray(jq.index.postings), codec)
         jq = dataclasses.replace(jq, index=dataclasses.replace(jq.index, packed=pk))
     return jq, qac_index_from_arrays(*qac_index_to_arrays(jq), device="cpu")
+
+
+def without_list(jq, term):
+    """(the JAX index with ``term``'s postings list emptied, as a stripe that
+    holds none of them sees it, the port's copy of it on the CPU). A lane
+    that needs the term beside another empty list is dead."""
+    idx = jq.index
+    post, offs = np.asarray(idx.postings), np.asarray(idx.offsets)
+    s, e = int(offs[term]), int(offs[term + 1])
+    offs = np.where(np.arange(offs.size) > term, offs - (e - s), offs).astype(np.int32)
+    minimal = np.asarray(idx.minimal).copy()
+    minimal[term] = 2**31 - 1
+    post = np.concatenate([post[:s], post[e:]])
+    idx = dataclasses.replace(
+        idx, postings=post, offsets=offs, minimal=minimal, n_postings=int(post.size),
+        packed=None if idx.packed is None else pack_postings(post, idx.packed.codec))
+    jq = dataclasses.replace(jq, index=idx)
+    return jq, qac_index_from_arrays(*qac_index_to_arrays(jq), device="cpu")
+
+
+def jax_multi_answers(jq, pids, plen, tl, th, iters):
+    """-> want(k, tile, max_tiles): JAX's ``conjunctive_multi_batch`` (plain
+    probes at depth ``iters``) on these lanes, as numpy, each computed once."""
+    cache = {}
+
+    def want(k, tile, max_tiles):
+        if (k, tile, max_tiles) not in cache:
+            cache[k, tile, max_tiles] = host(jax.jit(functools.partial(
+                jax_multi, k=k, tile=tile, max_tiles=max_tiles, use_kernel=False,
+                probe_iters=iters))(jq.index, jq.completions, host(pids), host(plen),
+                                    host(tl), host(th)))
+        return cache[k, tile, max_tiles]
+    return want
 
 
 def partials(kept, rng, B, pct_single=50, pct_garbage=0):

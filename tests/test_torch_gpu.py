@@ -30,8 +30,11 @@ from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_ref
 from repro_torch.kernels.heap_topk import ops as heap_ops
 from repro_torch.kernels.heap_topk.ref import heap_topk_ref
 from repro_torch.kernels.intersect import ops as isect_ops
+from repro_torch.core.search import conjunctive_lanes, conjunctive_multi_batch
 from repro_torch.kernels.intersect.ref import (conjunctive_scan_packed_ref,
-                                               conjunctive_scan_ref)
+                                               conjunctive_scan_ref,
+                                               conjunctive_topk_packed_ref,
+                                               conjunctive_topk_ref)
 from repro_torch.kernels.rmq import ops as rmq_ops
 from repro_torch.kernels.rmq.ref import rmq_window_batch
 from repro_torch.models.recsys import FMModel
@@ -188,28 +191,123 @@ def test_conjunctive_scan_kernel_matches_plain(built, codec):
     assert bool(got.any())
 
 
+def _topk_inputs(qidx, kept, seed):
+    """Lanes of 64 multi-term partial queries (bad ones among them), one lane
+    marked dead over a live lane's driver list, and two lanes whose driver
+    is the whole postings array, each needing the longest list: many chunks
+    of the kernel. -> (the kernel's arguments after the postings, iters)."""
+    rng = np.random.default_rng(seed)
+    pids, plen, _, suf, slen = parse_queries(qidx.dictionary, _partials(kept, rng, 64, 0, 10))
+    tl, th = qidx.dictionary.locate_prefix(suf, slen)
+    idx = qidx.index
+    d_start, d_end, starts, ends, dead = conjunctive_lanes(idx, pids, plen, tl, th)
+    live = int(torch.nonzero(~dead & (d_end - d_start > 8))[0, 0])
+    term = int(torch.argmax(idx.offsets[1:] - idx.offsets[:-1]))
+    span = torch.zeros((2, starts.shape[1]), dtype=torch.int32, device="cuda")
+    whole = torch.zeros_like(span)
+    span[:, 0], whole[:, 0] = idx.offsets[term], idx.offsets[term + 1]
+
+    def add(t, *v):
+        return torch.cat([t, torch.stack([torch.as_tensor(x, device="cuda") for x in v])
+                          .to(t.dtype)])
+    n = idx.n_postings
+    lanes = (add(d_start, d_start[live], 0, 0), add(d_end, d_end[live], n, n),
+             torch.cat([starts, starts[live:live + 1], span]),
+             torch.cat([ends, ends[live:live + 1], whole]),
+             add(dead, True, False, False), qidx.completions.fwd_terms,
+             add(tl, tl[live], 0, 1), add(th, th[live], idx.n_terms + 1, 5))
+    return lanes, idx.n_postings.bit_length()
+
+
+TOPK_GPU_CASES = [(8, 2, 10), (8, 2, 1), (16, 100, 128), (1000, 1, 10), (128, 4096, 1),
+                  (128, 4096, 10), (128, 4096, 128)]
+
+
+@pytest.mark.parametrize("codec", [None, "ef", "bitpack"])
+@pytest.mark.parametrize("tile,max_tiles,k", TOPK_GPU_CASES)
+def test_conjunctive_topk_kernel_matches_plain(built, codec, tile, max_tiles, k):
+    """The one-launch engine against its tile loop: caps that cut inside the
+    kernel's first chunk (16), in its second (1,600) and just short of one
+    chunk (1,000), and the full cap over the whole postings array."""
+    qidx, kept = built
+    lanes, iters = _topk_inputs(qidx, kept, tile + k)
+    kw = dict(k=k, tile=tile, max_tiles=max_tiles, iters=iters)
+    post = qidx.index.postings
+    if codec is None:
+        before = isect_ops.topk_launches
+        got = isect_ops.conjunctive_topk(post, *lanes, **kw)
+        torch.cuda.synchronize()
+        assert isect_ops.topk_launches == before + 1
+        want = conjunctive_topk_ref(post, *lanes, **kw)
+    else:
+        pk = _packed(qidx, codec)
+        before = isect_ops.topk_packed_launches
+        got = isect_ops.conjunctive_topk_packed(post, pk, *lanes, **kw)
+        torch.cuda.synchronize()
+        assert isect_ops.topk_packed_launches == before + 1
+        want = conjunctive_topk_packed_ref(post, pk, *lanes, **kw)
+    assert torch.equal(got, want)
+    assert bool((got[-3] == INF).all()) and bool((got[-2:] < INF).any())
+
+
+@pytest.mark.parametrize("codec", [None, "ef", "bitpack"])
+def test_conjunctive_topk_kernel_repeats_bit_for_bit(built, codec):
+    qidx, kept = built
+    lanes, iters = _topk_inputs(qidx, kept, 5)
+    kw = dict(k=128, tile=128, max_tiles=4096, iters=iters)
+    post = qidx.index.postings
+    pk = None if codec is None else _packed(qidx, codec)
+    run = (lambda: isect_ops.conjunctive_topk(post, *lanes, **kw)) if codec is None else (
+        lambda: isect_ops.conjunctive_topk_packed(post, pk, *lanes, **kw))
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.parametrize("codec", [None, "ef", "bitpack"])
+def test_multi_engine_launches_the_topk_kernel_once(built, codec):
+    qidx, kept = built
+    rng = np.random.default_rng(13)
+    pids, plen, _, suf, slen = parse_queries(qidx.dictionary, _partials(kept, rng, 64, 0, 10))
+    tl, th = qidx.dictionary.locate_prefix(suf, slen)
+    q = qidx if codec != "bitpack" else dataclasses.replace(
+        qidx, index=dataclasses.replace(qidx.index, packed=_packed(qidx, codec)))
+    counts = lambda: (isect_ops.launches, isect_ops.packed_launches,
+                      isect_ops.topk_launches, isect_ops.topk_packed_launches)
+    before = counts()
+    got = conjunctive_multi_batch(q.index, q.completions, pids, plen, tl, th, 10,
+                                  use_kernel=True, postings_codec=codec)
+    after = counts()
+    want = (0, 0, 1, 0) if codec is None else (0, 0, 0, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    plain = conjunctive_multi_batch(q.index, q.completions, pids, plen, tl, th, 10,
+                                    use_kernel=False, postings_codec=codec)
+    assert counts() == after
+    assert torch.equal(got, plain)
+
+
 def test_frontend_routes_agree_on_card(built):
     qidx, kept = built
     rng = np.random.default_rng(11)
     parsed = parse_queries(qidx.dictionary, _partials(kept, rng, 256))
     pids, plen, _, suf, slen = parsed
-    counts = (heap_ops.launches, rmq_ops.launches, isect_ops.launches)
+    counts = (heap_ops.launches, rmq_ops.launches, isect_ops.topk_launches)
     kernel = QACFrontend(qidx).complete(pids, plen, suf, slen)
     per_pop = QACFrontend(qidx, heap_kernel=False).complete(pids, plen, suf, slen)
     plain = QACFrontend(qidx, use_kernel=False).complete(pids, plen, suf, slen)
     np.testing.assert_array_equal(kernel, plain)
     np.testing.assert_array_equal(per_pop, plain)
-    after = (heap_ops.launches, rmq_ops.launches, isect_ops.launches)
+    after = (heap_ops.launches, rmq_ops.launches, isect_ops.topk_launches)
     assert all(a > b for a, b in zip(after, counts))
     for codec in ("ef", "bitpack"):
         q = qidx if codec == "ef" else dataclasses.replace(
             qidx, index=dataclasses.replace(qidx.index, packed=_packed(qidx, codec)))
-        counts = (heap_ops.launches, isect_ops.launches,
-                  heap_ops.packed_launches, isect_ops.packed_launches)
+        counts = (heap_ops.launches, isect_ops.topk_launches,
+                  heap_ops.packed_launches, isect_ops.topk_packed_launches)
         got = QACFrontend(q, postings_codec=codec).complete(pids, plen, suf, slen)
         np.testing.assert_array_equal(got, plain)
-        after = (heap_ops.launches, isect_ops.launches,
-                 heap_ops.packed_launches, isect_ops.packed_launches)
+        after = (heap_ops.launches, isect_ops.topk_launches,
+                 heap_ops.packed_launches, isect_ops.topk_packed_launches)
         assert after[:2] == counts[:2] and all(a > b for a, b in zip(after[2:], counts[2:]))
 
 

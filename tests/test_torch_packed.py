@@ -2,8 +2,10 @@
 codecs: the plain packed ``heap_topk`` against JAX's Pallas kernel in
 interpret mode (``out`` and ``done``), the plain packed ``conjunctive_scan``
 against JAX's ``conjunctive_scan_packed`` kernel in interpret mode, both
-engines under ``postings_codec`` against JAX's raw engines, and the
-codec checks. Every comparison is exact."""
+engines under ``postings_codec`` against JAX's raw engines, the plain
+packed top-k engine (``conjunctive_topk_packed_ref``, through the CPU
+wrapper) against JAX's engine at several tiles, caps and k, and the codec
+checks. Every comparison is exact."""
 import dataclasses
 import functools
 
@@ -18,15 +20,15 @@ from repro.core.search import (conjunctive_multi_batch as jax_multi,
 from repro.kernels.heap_topk.ops import heap_topk as jax_heap_topk
 from repro.kernels.intersect.ops import conjunctive_scan_packed as jax_scan_packed
 from repro_torch.core import parse_queries
-from repro_torch.core.search import (conjunctive_multi_batch,
+from repro_torch.core.search import (conjunctive_lanes, conjunctive_multi_batch,
                                      describe_single_route,
                                      single_term_topk_bounded_batch)
 from repro_torch.kernels.heap_topk import ops as heap_ops
 from repro_torch.kernels.intersect import ops as isect_ops
-from repro_torch.kernels.intersect.ref import fwd_rows_of
+from repro_torch.kernels.intersect.ref import conjunctive_topk_packed_ref, fwd_rows_of
 from repro_torch.serve import QACFrontend
 
-from _torch_pairs import build_pair, host, partials, with_codec
+from _torch_pairs import build_pair, host, jax_multi_answers, partials, with_codec, without_list
 
 INF = 2**31 - 1
 CODECS = ("ef", "bitpack")
@@ -167,3 +169,45 @@ def test_multi_term_engine_under_codec(multi, codec):
     with pytest.raises(ValueError, match="no packed postings"):
         conjunctive_multi_batch(bare, tq.completions, pids, plen, tl, th, 10,
                                 postings_codec=codec)
+
+
+@pytest.fixture(scope="module")
+def packed_topk(multi):
+    """The multi batch plus a repeated-term lane, on a stripe of the "ef"
+    index that holds none of that term's postings (the lane is dead), each
+    codec's port copy of it, and the JAX engine's answers by (k, tile,
+    max_tiles)."""
+    pairs, (pids, plen, _, suf, slen) = multi
+    row = int(torch.nonzero(plen >= 1)[0, 0])
+    pids = torch.cat([pids, pids[row:row + 1]])
+    pids[-1, 1] = pids[-1, 0]
+    plen = torch.cat([plen, torch.tensor([2], dtype=plen.dtype)])
+    suf, slen = torch.cat([suf, suf[row:row + 1]]), torch.cat([slen, slen[row:row + 1]])
+    jq, _ = without_list(pairs["ef"][0], int(pids[-1, 0]))
+    tqs = {c: with_codec(jq, c)[1] for c in CODECS}
+    tl, th = tqs["ef"].dictionary.locate_prefix(suf, slen)
+    iters = QACFrontend(tqs["ef"])._multi_list_pad(pids.numpy(), plen.numpy()).bit_length()
+    want = jax_multi_answers(jq, pids, plen, tl, th, iters)
+    return tqs, (pids, plen, tl, th), iters, want
+
+
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("k,tile,max_tiles", [(k, tile, max_tiles) for tile, max_tiles in
+                                              [(16, 4096), (128, 4096), (8, 2)]
+                                              for k in (1, 10, 128)])
+def test_plain_packed_topk_equals_jax_engine(packed_topk, codec, k, tile, max_tiles):
+    tqs, (pids, plen, tl, th), iters, want = packed_topk
+    tq = tqs[codec]
+    lanes = conjunctive_lanes(tq.index, pids, plen, tl, th)
+    assert bool(lanes[4][-1]) and not bool(lanes[4].all())
+    before = (isect_ops.packed_launches, isect_ops.topk_packed_launches)
+    got = isect_ops.conjunctive_topk_packed(
+        tq.index.postings, tq.index.packed, *lanes, tq.completions.fwd_terms, tl, th,
+        k=k, tile=tile, max_tiles=max_tiles, iters=iters)
+    assert (isect_ops.packed_launches, isect_ops.topk_packed_launches) == before
+    plain = conjunctive_topk_packed_ref(
+        tq.index.postings, tq.index.packed, *lanes, tq.completions.fwd_terms, tl, th,
+        k=k, tile=tile, max_tiles=max_tiles, iters=iters)
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.numpy(), want(k, tile, max_tiles))
+    assert (got[-1] == INF).all() and (got < INF).any()
