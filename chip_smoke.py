@@ -6,8 +6,9 @@
 Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
   2. the build of every CUDA kernel from ``src/repro_torch/csrc``, one
-     ``nvcc`` per source, all at once, with the ``ptxas -v`` report of every
-     flash_attention instantiation (a spill in a bf16 one fails);
+     ``nvcc`` per source, all at once, with the ``ptxas -v`` report
+     (registers, spills) of every flash_attention, heap_topk and intersect
+     instantiation (a spill in a bf16 flash_attention one fails);
   3. the recsys path at the full widths of the repo's configs: each model at
      smoke width on the card against the CPU; FM (39 fields x 1M rows x 10)
      at B = 512, 262,144 and 1,048,576 through the fm_pairwise kernel and the
@@ -43,7 +44,13 @@ Phases, each printing its lines before the next starts:
      the kernel's device time per launch from ``torch.profiler``, and
      CUDA-event times per call of the wrapper (host-inclusive) and of the
      plain version (3 calls only for the plain heap_topk and packed scan,
-     which take up to a second each). The per-tile conjunctive_scan kernels
+     which take up to a second each). heap_topk at its four (k, trips)
+     cases on every codec, with the most trips any lane ran (the plain
+     version counts them) and the kernel's us per trip; the single-term
+     routes side by side (the engine through heap_topk and through the
+     per-pop RMQ kernel, raw and "ef", on the batch's first B term ranges,
+     B = 1, 8, 64, 256, k=10, trips=12), device us and wrapper us per call
+     each. The per-tile conjunctive_scan kernels
      at B=64 T=128; the one-launch conjunctive_topk kernels on the batch's
      multi-term queries (k=10, tile=128) at the full cap (4,096 tiles) and
      at PLAIN_TILES held against topk_walk, a chunked torch version, and at
@@ -191,8 +198,15 @@ def fail(msg):
 
 
 def demangle(symbol: str) -> str:
-    """A flash_attention instantiation's name, as ptxas reports it, made
-    readable: ``flash_attention_tc_kernel<256, decode, softcap>``."""
+    """A kernel instantiation's name, as ptxas reports it, made readable:
+    ``flash_attention_tc_kernel<256, decode, softcap>``,
+    ``heap_topk_kernel<qac::PackedLookup<true>>``."""
+    m = re.search(r"(heap_topk_kernel|conjunctive_(?:scan|topk)_kernel)IN3qac"
+                  r"(?:9RawLookup|12PackedLookupILb([01])E)", symbol)
+    if m:
+        lookup = ("qac::RawLookup" if m.group(2) is None else
+                  f"qac::PackedLookup<{'true' if m.group(2) == '1' else 'false'}>")
+        return f"{m.group(1)}<{lookup}>"
     m = re.search(r"(flash_attention_(?:tc_)?kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?", symbol)
     if not m:
         return symbol
@@ -323,6 +337,26 @@ def median_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def call_device_us(torch, fn, reps: int) -> tuple[float, float]:
+    """(device us per call, launches per call), summed over every kernel and
+    copy that ``reps`` calls of ``fn`` put on the card, from
+    ``torch.profiler``'s CUDA activity after a warm-up step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step_reps in (min(reps, 5), reps):
+            for _ in range(step_reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = device_times_events(prof)
+    return (sum(e.self_device_time_total for e in events) / reps,
+            sum(e.count for e in events) / reps)
 
 
 def device_times(prof):
@@ -1033,7 +1067,8 @@ def main() -> int:
     from repro_torch.core import build_qac_index, parse_queries
     from repro_torch.core.codecs import pack_postings, unpack_postings
     from repro_torch.kernels.heap_topk.ref import heap_topk_ref
-    from repro_torch.core.search import conjunctive_lanes
+    from repro_torch.core.search import (conjunctive_lanes,
+                                         single_term_topk_bounded_batch)
     from repro_torch.kernels.intersect.ref import (conjunctive_scan_packed_ref,
                                                    conjunctive_scan_ref,
                                                    conjunctive_topk_packed_ref,
@@ -1080,7 +1115,7 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry function" in line:   # the ptxas -v report, per instantiation
                 entry = line.split("'")[1]
-                if name == "flash_attention":
+                if name in ("flash_attention", "heap_topk", "intersect"):
                     say(f"[build] {name}: {demangle(entry)}")
             elif "Used" in line or "spill" in line or any(
                     w in line for w in ("C7508", "C7512", "C7520")):   # setmaxnreg, wgmma serialised
@@ -1223,16 +1258,25 @@ def main() -> int:
     heap_cases = ((10, 12), (10, 20), (64, 66), (64, 128))
     heap_equal = lambda g, w: torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
     heap_out = {}
+    heap_trips = {}      # the most trips any lane runs, as the kernel's loop does
+
+    def per_trip(c, k, trips):
+        c["most_trips"] = most = heap_trips[k, trips]
+        c["us_per_trip"] = c["ms"] * 1e3 / max(most, 1)
+        return f"most trips of a lane {most}, {c['us_per_trip']:.3f} us/trip"
+
     for k, trips in heap_cases:
         kw = dict(k=k, trips=trips, n=n, n_terms=idx.n_terms)
-        heap_out[k, trips] = out = heap_topk_ref(*targs, **kw)[0]
+        out, _, ran = heap_topk_ref(*targs, **kw, count_trips=True)
+        heap_out[k, trips], heap_trips[k, trips] = out, int(ran.max())
         b_heap = heap_bytes(torch, hl, hh, out, k, idx.offsets, idx.minimal,
                             idx.postings)
         case = f"B={hl.numel()} k={k} trips={trips}"
         c = hold("heap_topk", lambda: ops["heap_topk"].heap_topk(*targs, **kw),
                  lambda: heap_topk_ref(*targs, **kw), heap_equal, b_heap, 200, case,
                  plain_reps=3)
-        say(f"[kernel] heap_topk {case}: {timing(c)} ({b_heap} B) | equal")
+        say(f"[kernel] heap_topk {case}: {timing(c)} ({b_heap} B; "
+            f"{per_trip(c, k, trips)}) | equal")
     # the packed kernel on the same ranges, for both codecs; its plain version
     # decodes with many small PyTorch ops per read, so it runs a few times only
     for codec, pk in packs.items():
@@ -1247,7 +1291,48 @@ def main() -> int:
                      lambda: heap_topk_ref(*targs, **kw, packed=pk), heap_equal,
                      b_heap, 200, case, codec, plain_reps=3)
             say(f"[kernel] heap_topk_packed[{codec}] {case}: {timing(c)} "
-                f"({b_heap} B) | equal")
+                f"({b_heap} B; {per_trip(c, k, trips)}) | equal")
+
+    # heap_topk's lanes a block: the plan's MAX_WARPS against its neighbours
+    # (B=256: 256, 128, 64 and 32 blocks), raw and "ef" at (10, 12)
+    heap_mod = ops["heap_topk"]
+    kw = dict(k=10, trips=12, n=n, n_terms=idx.n_terms)
+    chosen, sweep = heap_mod.MAX_WARPS, {}
+    for warps in (1, 2, 4, 8):
+        heap_mod.MAX_WARPS = warps
+        for codec in (None, "ef"):
+            run = (lambda: heap_mod.heap_topk(*targs, **kw)) if codec is None else (
+                lambda: heap_mod.heap_topk_packed(*targs[:4], packs["ef"], hl, hh, **kw))
+            if not heap_equal(run(), heap_topk_ref(*targs, **kw)):
+                fail(f"heap_topk[{codec or 'raw'}] at {warps} warps a block disagrees")
+            tag = TRACE_TAGS["heap_topk" if codec is None else ("heap_topk_packed", codec)]
+            sweep[warps, codec or "raw"] = kernel_device_ms(torch, run, tag, 200)[0] * 1e3
+    heap_mod.MAX_WARPS = chosen
+    say(f"[kernel] heap_topk B={hl.numel()} k=10 trips=12 by lanes (warps) a block, "
+        f"device us/launch (the plan takes {chosen}): " + ", ".join(
+            f"{w} {c} {us:.2f}" for (w, c), us in sweep.items()))
+
+    # the single-term routes side by side, for a route rule: the engine
+    # through heap_topk and through the per-pop RMQ kernel (which reads raw
+    # postings on every codec), on the batch's first B term ranges
+    route_grid = []
+    for B in (1, 8, 64, 256):
+        for codec in (None, "ef"):
+            for heap_kernel in (True, False):
+                def engine():
+                    return single_term_topk_bounded_batch(
+                        idx, rm, tl[:B], th[:B], 10, 12, use_kernel=True,
+                        heap_kernel=heap_kernel, postings_codec=codec)
+                dev_us, per_call = call_device_us(torch, engine, 20)
+                g = {"B": B, "codec": codec or "raw",
+                     "route": "heap_topk" if heap_kernel else "per_pop_rmq",
+                     "device_us": dev_us, "launches_per_call": per_call,
+                     "call_us": cuda_ms(torch, engine, 20) * 1e3}
+                route_grid.append(g)
+                say(f"[route] single-term B={B} {g['codec']} {g['route']}: device "
+                    f"{dev_us:.2f} us/call ({per_call:.1f} launches), wrapper "
+                    f"{g['call_us']:.2f} us/call, k=10 trips=12 on {smi}")
+    say("[route] " + json.dumps({"single_term_routes": route_grid}))
 
     # conjunctive_scan: the first real tile of 64 multi-term queries
     multi = torch.nonzero(plen > 0)[:64, 0]

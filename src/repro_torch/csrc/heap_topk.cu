@@ -13,36 +13,50 @@
 // heap_topk_launch takes raw postings; heap_topk_packed_launch takes the
 // packed ones and picks the instantiation from its `ef` flag.
 //
-// One thread per query lane. Its slots (kind/lo/hi/pos/val, cap = 2*trips+1
-// each) live in dynamic shared memory laid out [5][cap][lanes], so a warp's
-// accesses to one slot hit 32 distinct banks. Lanes per block shrink as cap
-// grows so that the frontend's largest budget (k = 128, trips = 2k,
-// cap = 513) still fits; the launch is checked and a refusal is raised.
+// One warp per query lane, `warps` lanes a block (ops.py::plan_heap_launch
+// picks them and the shared bytes; B=256 fills 64 blocks). A lane's slots
+// (kind/lo/hi/pos/val, cap = 2*trips+1 each) sit in its warp's share of
+// dynamic shared memory, [5][cap]; slot s belongs to thread s % 32, and only
+// that thread ever reads or writes it (the warp trades values by shuffles),
+// so the slots need no warp barrier. The launch is checked and a shared
+// memory plan the card cannot run is refused.
 //
-// Each trip: the argmin over the slots written so far (first minimum wins,
-// as jnp.argmin does: equal docids sit in range and iterator slots at once,
-// so the lowest slot index decides emission order and `done`); emit unless
-// the docid repeats the previous one, writing only while fewer than k were
-// emitted (the plain version's drop sink); both split-subrange RMQs
-// (qac::rmq_window) for a range pop, or the advance of an iterator; the
-// offsets and postings reads that create or advance lazy iterators.
+// Each trip:
+//  * the pop: each thread keeps the minimum (val, slot) of its own slots; the
+//    warp's argmin is two redux.sync minima, the value and then the lowest
+//    slot holding it. That is jnp.argmin's first minimum, which decides
+//    emission order and `done` when one docid sits in a range slot and an
+//    iterator slot at once. A trip changes at most 3 slots (best, nf,
+//    nf + 1): the owner of best rescans its own slots, the owners of nf and
+//    nf + 1 compare their new value;
+//  * emit unless the docid repeats the previous one;
+//  * a range pop's reads, in flight together: lanes 0-2 run the three parts
+//    of the left split-subrange RMQ (qac::rmq_part), lanes 3-5 the right one
+//    (the other lanes repeat them at the same addresses), and every lane
+//    reads offsets[ct], offsets[ct+1] and then the new iterator's posting.
+//    Two dependent rounds raw (the RMQ windows and the offsets, then the
+//    values and the posting), three packed (the block directory comes
+//    between). An iterator pop reads offsets[cl+1] and its next posting
+//    together: one round raw, two packed. Every such read is clamped, so a
+//    posting past the list's end is read and dropped, not skipped.
 //
 // Exits: once the popped minimum is INF, or k docids were emitted, no later
-// trip can change `out` or `done`, so the loop stops there. Slots the plain
-// version writes with INF after such a pop need no writes here.
+// trip can change `out` or `done`, so the loop stops there; `done` is
+// n_out >= k || min == INF, and the row is INF-padded past n_out.
 //
 // Bound: dependent gathers. A lane that emits k docids reads on the order of
 // k pops x (2 RMQs of < 64 bytes + 3 offsets + 1 posting), a few KB, from a
 // ~1 GB index: latency-bound, not bandwidth-bound, at any batch the frontend
-// forms. A packed lookup is a chain of dependent reads in place of one: the
-// block's directory (12 B), two payload words (8 B) and, on an EF block, up
-// to 8 bitmap words (32 B). The design keeps the whole loop in one launch with the heap on chip
-// (no per-pop launches or device-memory round trips of the heap state).
+// forms. So the design shortens the chain a trip waits on: 2 dependent
+// rounds of reads where one thread running both RMQs and the iterator in
+// turn waits on 5-6, and two warp reductions where it scans up to
+// 2*trips+1 slots. On an H100 a raw trip takes ~1.0-1.2 us (PERF.md).
 #include "qac_common.cuh"
 
 namespace {
 
-constexpr int kSmemBudget = 200 * 1024;  // of the 227 KB a block may use
+constexpr unsigned kAll = 0xFFFFFFFFu;
+constexpr int kNoSlot = 0x7FFFFFFF;
 
 template <class Lookup>
 __global__ void heap_topk_kernel(qac::RmqTables t, const int* __restrict__ offsets,
@@ -53,94 +67,140 @@ __global__ void heap_topk_kernel(qac::RmqTables t, const int* __restrict__ offse
                                  unsigned char* __restrict__ done, int B, int k,
                                  int trips) {
   extern __shared__ int smem[];
-  const int L = blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + w;
+  if (b >= B) return;  // the whole warp; no block-wide barrier below
   const int cap = 2 * trips + 1;
-  const int b = blockIdx.x * L + threadIdx.x;
-  if (b >= B) return;  // no block-wide barrier below
-  int* kind = smem + threadIdx.x;  // slot s of this lane at kind[s * L]
-  int* lo_a = kind + cap * L;
-  int* hi_a = lo_a + cap * L;
-  int* pos_a = hi_a + cap * L;
-  int* val_a = pos_a + cap * L;
+  int* kind = smem + (size_t)w * 5 * cap;
+  int* lo_a = kind + cap;
+  int* hi_a = lo_a + cap;
+  int* pos_a = hi_a + cap;
+  int* val_a = pos_a + cap;
+  for (int s = lane; s < cap; s += 32) val_a[s] = QAC_INF;
 
+  // slot 0: the lane's whole term range, its RMQ parts on lanes 0-2
   const int tl = term_lo[b];
   const int hi_incl = term_hi[b] - 1;
-  int pos0, val0;
-  qac::rmq_window(t, tl, hi_incl, pos0, val0);
-  kind[0] = 0;
-  lo_a[0] = tl;
-  hi_a[0] = hi_incl;
-  pos_a[0] = pos0;
-  val_a[0] = tl <= hi_incl ? val0 : QAC_INF;
-  int used = 1;  // slots [0, used) are written; the rest are INF
+  const qac::RmqCand r0 =
+      qac::rmq_warp_merge(qac::rmq_part(t, tl, hi_incl, lane % 3), 0);
+  int mval = QAC_INF, mslot = kNoSlot;  // this thread's (val, slot) minimum
+  if (lane == 0) {
+    kind[0] = 0;
+    lo_a[0] = tl;
+    hi_a[0] = hi_incl;
+    pos_a[0] = r0.pos;
+    val_a[0] = tl <= hi_incl ? r0.val : QAC_INF;
+    mval = val_a[0];
+    mslot = 0;
+  }
   int* orow = out + (size_t)b * k;
-  for (int c = 0; c < k; ++c) orow[c] = QAC_INF;
-  int n_out = 0, prev = -1;
+  int n_out = 0, prev = -1, used = 1;  // slots [0, used) may be live
+  int bval = __reduce_min_sync(kAll, mval);
 
-  for (int i = 0; i < trips && n_out < k; ++i) {
-    int best = 0, bval = val_a[0];
-    for (int s = 1; s < used; ++s) {
-      const int v = val_a[s * L];
-      if (v < bval) { bval = v; best = s; }
+  for (int i = 0; i < trips && n_out < k && bval != QAC_INF; ++i) {
+    const int best = __reduce_min_sync(kAll, mval == bval ? mslot : kNoSlot);
+    if (bval != prev) {
+      if (lane == 0) orow[n_out] = bval;
+      ++n_out;
     }
-    if (bval == QAC_INF) break;  // heap exhausted
-    if (bval != prev) orow[n_out++] = bval;
     prev = bval;
-    const int tstar = pos_a[best * L], lo = lo_a[best * L], hi = hi_a[best * L];
+    const int owner = best & 31;
+    int f_kind = 0, f_lo = 0, f_hi = 0, f_pos = 0;
+    if (lane == owner) {
+      f_kind = kind[best];
+      f_lo = lo_a[best];
+      f_hi = hi_a[best];
+      f_pos = pos_a[best];
+    }
+    const int kd = __shfl_sync(kAll, f_kind, owner);
+    const int lo = __shfl_sync(kAll, f_lo, owner);
+    const int hi = __shfl_sync(kAll, f_hi, owner);
+    const int tstar = __shfl_sync(kAll, f_pos, owner);
     const int nf = 1 + 2 * i;
-    if (kind[best * L] == 0) {
+    used = nf + 2;
+    if (kd == 0) {
       // range pop: keep the left part, open the right part and the
       // iterator of term tstar (its minimum was postings[start])
-      int lpos = 0, lval = QAC_INF, rpos = 0, rval = QAC_INF;
-      if (lo <= tstar - 1) qac::rmq_window(t, lo, tstar - 1, lpos, lval);
-      if (tstar + 1 <= hi) qac::rmq_window(t, tstar + 1, hi, rpos, rval);
+      const int g = lane % 6;
+      const bool right = g >= 3;
+      const qac::RmqCand part = qac::rmq_part(t, right ? tstar + 1 : lo,
+                                              right ? hi : tstar - 1, right ? g - 3 : g);
       const int ct = min(max(tstar, 0), n_terms);
       const int it_ptr = offsets[ct] + 1;
-      const int it_val = it_ptr < offsets[ct + 1] ? lookup(it_ptr) : QAC_INF;
-      hi_a[best * L] = tstar - 1;
-      pos_a[best * L] = lpos;
-      val_a[best * L] = lval;
-      kind[nf * L] = 0;
-      lo_a[nf * L] = tstar + 1;
-      hi_a[nf * L] = hi;
-      pos_a[nf * L] = rpos;
-      val_a[nf * L] = rval;
-      kind[(nf + 1) * L] = 1;
-      lo_a[(nf + 1) * L] = tstar;  // an iterator keeps its term in lo
-      hi_a[(nf + 1) * L] = -1;
-      pos_a[(nf + 1) * L] = it_ptr;
-      val_a[(nf + 1) * L] = it_val;
+      const int it_end = offsets[ct + 1];
+      const int it_look = lookup(it_ptr);
+      const qac::RmqCand left = qac::rmq_warp_merge(part, 0);
+      const qac::RmqCand rgt = qac::rmq_warp_merge(part, 3);
+      const int lval = lo <= tstar - 1 ? left.val : QAC_INF;
+      const int rval = tstar + 1 <= hi ? rgt.val : QAC_INF;
+      const int it_val = it_ptr < it_end ? it_look : QAC_INF;
+      if (lane == owner) {
+        hi_a[best] = tstar - 1;
+        pos_a[best] = left.pos;
+        val_a[best] = lval;
+      }
+      if (lane == (nf & 31)) {
+        kind[nf] = 0;
+        lo_a[nf] = tstar + 1;
+        hi_a[nf] = hi;
+        pos_a[nf] = rgt.pos;
+        val_a[nf] = rval;
+        if (lane != owner && rval < mval) {
+          mval = rval;
+          mslot = nf;
+        }
+      }
+      if (lane == ((nf + 1) & 31)) {
+        kind[nf + 1] = 1;
+        lo_a[nf + 1] = tstar;  // an iterator keeps its term in lo
+        hi_a[nf + 1] = -1;
+        pos_a[nf + 1] = it_ptr;
+        val_a[nf + 1] = it_val;
+        if (lane != owner && it_val < mval) {
+          mval = it_val;
+          mslot = nf + 1;
+        }
+      }
     } else {
-      // iterator pop: advance it; the two fresh slots stay dead
+      // iterator pop: advance it; the two fresh slots stay INF
       const int cl = min(max(lo, 0), n_terms);
       const int adv_ptr = tstar + 1;
-      pos_a[best * L] = adv_ptr;
-      val_a[best * L] = adv_ptr < offsets[cl + 1] ? lookup(adv_ptr) : QAC_INF;
-      val_a[nf * L] = QAC_INF;
-      val_a[(nf + 1) * L] = QAC_INF;
+      const int adv_end = offsets[cl + 1];
+      const int adv_look = lookup(adv_ptr);
+      if (lane == owner) {
+        pos_a[best] = adv_ptr;
+        val_a[best] = adv_ptr < adv_end ? adv_look : QAC_INF;
+      }
     }
-    used = nf + 2;
+    if (lane == owner) {  // best's value rose: rescan this thread's slots
+      mval = QAC_INF;
+      mslot = kNoSlot;
+      for (int s = lane; s < used; s += 32) {
+        const int v = val_a[s];
+        if (v < mval) {
+          mval = v;
+          mslot = s;
+        }
+      }
+    }
+    bval = __reduce_min_sync(kAll, mval);
   }
-  int mn = QAC_INF;
-  for (int s = 0; s < used; ++s) mn = min(mn, val_a[s * L]);
-  done[b] = (n_out >= k) || (mn == QAC_INF);
+  for (int c = n_out + lane; c < k; c += 32) orow[c] = QAC_INF;
+  if (lane == 0) done[b] = (n_out >= k) || (bval == QAC_INF);
 }
 
 template <class Lookup>
 int launch(const qac::RmqTables& t, const int* offsets, Lookup lookup,
            int n_terms, const int* term_lo, const int* term_hi, int* out,
-           unsigned char* done, int B, int k, int trips, void* stream) {
-  const size_t lane_bytes = 5 * sizeof(int) * (size_t)(2 * trips + 1);
-  int lanes = static_cast<int>(kSmemBudget / lane_bytes);
-  lanes = lanes >= 32 ? 32 : (lanes < 1 ? 1 : lanes);
-  const size_t smem = lane_bytes * lanes;
+           unsigned char* done, int B, int k, int trips, int blocks, int warps,
+           int smem, void* stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        heap_topk_kernel<Lookup>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        heap_topk_kernel<Lookup>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  heap_topk_kernel<Lookup><<<(B + lanes - 1) / lanes, lanes, smem,
+  heap_topk_kernel<Lookup><<<blocks, warps * 32, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       t, offsets, lookup, n_terms, term_lo, term_hi, out, done, B, k, trips);
   return static_cast<int>(cudaGetLastError());
@@ -152,10 +212,11 @@ extern "C" __attribute__((visibility("default"))) int heap_topk_launch(
     const int* values, const int8_t* ib, const int* st_pos, int n, int n_pad,
     int levels, int n_blocks, const int* offsets, const int* postings,
     int n_post, int n_terms, const int* term_lo, const int* term_hi, int* out,
-    unsigned char* done, int B, int k, int trips, void* stream) {
+    unsigned char* done, int B, int k, int trips, int blocks, int warps,
+    int smem, void* stream) {
   const qac::RmqTables t{values, ib, st_pos, n, n_pad, levels, n_blocks};
   return launch(t, offsets, qac::RawLookup{postings, n_post}, n_terms, term_lo,
-                term_hi, out, done, B, k, trips, stream);
+                term_hi, out, done, B, k, trips, blocks, warps, smem, stream);
 }
 
 extern "C" __attribute__((visibility("default"))) int heap_topk_packed_launch(
@@ -163,12 +224,13 @@ extern "C" __attribute__((visibility("default"))) int heap_topk_packed_launch(
     int levels, int n_blocks, const int* offsets, const int* words,
     const int* base, const int* meta, const int* wordoff, int W, int n_post,
     int ef, int n_terms, const int* term_lo, const int* term_hi, int* out,
-    unsigned char* done, int B, int k, int trips, void* stream) {
+    unsigned char* done, int B, int k, int trips, int blocks, int warps,
+    int smem, void* stream) {
   const qac::RmqTables t{values, ib, st_pos, n, n_pad, levels, n_blocks};
   const qac::PackedView v{words, base, meta, wordoff, W, n_post};
   if (ef)
     return launch(t, offsets, qac::PackedLookup<true>{v}, n_terms, term_lo,
-                  term_hi, out, done, B, k, trips, stream);
+                  term_hi, out, done, B, k, trips, blocks, warps, smem, stream);
   return launch(t, offsets, qac::PackedLookup<false>{v}, n_terms, term_lo,
-                term_hi, out, done, B, k, trips, stream);
+                term_hi, out, done, B, k, trips, blocks, warps, smem, stream);
 }

@@ -6,6 +6,9 @@
 //    blocks), with its candidate order and tie rule: each window pair takes
 //    its left window on ties, then (c1, c2), then (c3, c4), and the middle
 //    wins only when strictly smaller. That is not "leftmost overall".
+//    Written as three parts (qac::rmq_part: c1, c2, c3/c4) and their merge,
+//    so that a warp can run one range's parts, or two ranges', on different
+//    lanes (qac::rmq_warp_merge); rmq_window runs them on one thread.
 //  * qac::raw_lookup — the raw postings lookup postings[min(ptr, n_post-1)].
 //  * qac::packed_lookup<kEf> — the same lookup decoded from the compressed
 //    postings (the JAX package's core/codecs.py::packed_lookup), in uint32_t
@@ -37,68 +40,91 @@ struct RmqTables {
 
 __device__ __forceinline__ int floor_log2(int x) { return 31 - __clz(x); }  // x >= 1
 
-// (pos, val) of the argmin over values[p..q] inclusive after clamping p and q
-// to [0, n-1]; val is INF for an inverted range. Bit-identical to the plain
-// version in val everywhere and in pos wherever val < INF. Reads that the
-// plain version masks away (the right window when both ends share a block,
-// the sparse table when no whole block lies between them) are skipped: they
-// cannot change the result.
-__device__ __forceinline__ void rmq_window(const RmqTables& t, int p, int q,
-                                           int& out_pos, int& out_val) {
+// (pos, val) of one candidate window.
+struct RmqCand {
+  int pos, val;
+};
+
+// One of rmq_window's three candidates over values[p..q] inclusive, after
+// clamping p and q to [0, n-1]: part 0 the left partial block (c1), part 1
+// the right partial block (c2; INF when both ends share a block), part 2 the
+// whole blocks between (c3 and c4 merged; INF when there are none). Each
+// part is two dependent rounds of two loads: the argmins of two overlapping
+// windows (in-block offsets from ib, or global positions from the sparse
+// table), then their two values; the pair takes its left window on ties.
+// Every part of an inverted range is INF. The loads sit in load-only
+// branches, so lanes of a warp that take different parts (or ranges) issue
+// each round together and wait once.
+__device__ __forceinline__ RmqCand rmq_part(const RmqTables& t, int p, int q,
+                                            int part) {
   const int top = t.n > 0 ? t.n - 1 : 0;
   p = min(max(p, 0), top);
   const int qc = min(max(q, 0), top);
   const bool invalid = (p > qc) || (t.n == 0);
   const int bp = p / kBlock, bq = qc / kBlock;
   const bool same = bp == bq;
-  // left partial block [p, hi1]
-  const int hi1 = max(same ? qc : bp * kBlock + (kBlock - 1), p);
-  const int j1 = floor_log2(hi1 - p + 1);
-  const int s1 = hi1 - (1 << j1) + 1;
-  int p1a = p, p1b = s1;
-  if (j1 > 0) {
-    const int8_t* row = t.ib + (size_t)(j1 - 1) * t.n_pad;
-    p1a += row[p];
-    p1b += row[s1];
-  }
-  const int v1a = t.values[p1a], v1b = t.values[p1b];
-  const int c1_pos = v1b < v1a ? p1b : p1a;
-  const int c1_val = min(v1a, v1b);
-  // right partial block [bq*kBlock, qc]
-  int c2_pos = 0, c2_val = QAC_INF;
-  if (!same) {
-    const int lo2 = bq * kBlock;
-    const int j2 = floor_log2(qc - lo2 + 1);
-    const int s2 = qc - (1 << j2) + 1;
-    int p2a = lo2, p2b = s2;
-    if (j2 > 0) {
-      const int8_t* row = t.ib + (size_t)(j2 - 1) * t.n_pad;
-      p2a += row[lo2];
-      p2b += row[s2];
-    }
-    const int v2a = t.values[p2a], v2b = t.values[p2b];
-    c2_pos = v2b < v2a ? p2b : p2a;
-    c2_val = min(v2a, v2b);
-  }
-  // whole blocks between: two overlapping sparse-table windows
-  int c3_pos = 0, c3_val = QAC_INF, c4_pos = 0, c4_val = QAC_INF;
   const int cnt = bq - bp - 1;
-  if (cnt > 0) {
+  const bool live = part == 0 || (part == 1 ? !same : cnt > 0);
+  // the partial block's window [wlo, whi]: [p, hi1] left, [bq*kBlock, qc] right
+  const int wlo = part == 0 ? p : bq * kBlock;
+  const int whi = part == 0 ? max(same ? qc : bp * kBlock + (kBlock - 1), p) : qc;
+  const int j = floor_log2(max(whi - wlo + 1, 1));
+  int pa = part == 2 ? 0 : wlo;
+  int pb = part == 2 ? 0 : whi - (1 << j) + 1;
+  int da = 0, db = 0;
+  if (part < 2 && live && j > 0) {
+    const int8_t* row = t.ib + (size_t)(j - 1) * t.n_pad;
+    da = row[pa];
+    db = row[pb];
+  }
+  if (part == 2 && live) {
     const int jc = min(floor_log2(cnt), t.levels - 1);
     const int lo_b = min(bp + 1, t.n_blocks - 1);
     const int hi_b = min(max(bq - (1 << jc), 0), t.n_blocks - 1);
     const int* row = t.st_pos + (size_t)jc * t.n_blocks;
-    c3_pos = row[lo_b];
-    c4_pos = row[hi_b];
-    c3_val = t.values[c3_pos];
-    c4_val = t.values[c4_pos];
+    da = row[lo_b];
+    db = row[hi_b];
   }
-  const int p12 = c2_val < c1_val ? c2_pos : c1_pos;
-  const int v12 = min(c1_val, c2_val);
-  const int p34 = c4_val < c3_val ? c4_pos : c3_pos;
-  const int v34 = min(c3_val, c4_val);
-  out_pos = v34 < v12 ? p34 : p12;
-  out_val = invalid ? QAC_INF : min(v12, v34);
+  pa += da;
+  pb += db;
+  int va = QAC_INF, vb = QAC_INF;
+  if (live) {
+    va = t.values[pa];
+    vb = t.values[pb];
+  }
+  return {vb < va ? pb : pa, invalid ? QAC_INF : min(va, vb)};
+}
+
+// rmq_window's answer from its three parts: (c1, c2), then (c3, c4) only
+// when strictly smaller.
+__device__ __forceinline__ RmqCand rmq_merge(RmqCand c1, RmqCand c2, RmqCand c34) {
+  const RmqCand c12{c2.val < c1.val ? c2.pos : c1.pos, min(c1.val, c2.val)};
+  return {c34.val < c12.val ? c34.pos : c12.pos, min(c12.val, c34.val)};
+}
+
+// (pos, val) of the argmin over values[p..q] inclusive after clamping p and q
+// to [0, n-1]; val is INF for an inverted range. Bit-identical to the plain
+// version in val everywhere and in pos wherever val < INF. Reads that the
+// plain version masks away (the right window when both ends share a block,
+// the sparse table when no whole block lies between them) are skipped: they
+// cannot change the result. One thread runs the three parts.
+__device__ __forceinline__ void rmq_window(const RmqTables& t, int p, int q,
+                                           int& out_pos, int& out_val) {
+  const RmqCand c = rmq_merge(rmq_part(t, p, q, 0), rmq_part(t, p, q, 1),
+                              rmq_part(t, p, q, 2));
+  out_pos = c.pos;
+  out_val = c.val;
+}
+
+// rmq_window over a warp: lanes first, first+1, first+2 hold parts 0, 1, 2
+// of one range (rmq_part); every lane gets the merged answer. All 32 lanes
+// must call it.
+__device__ __forceinline__ RmqCand rmq_warp_merge(RmqCand c, int first) {
+  const unsigned all = 0xFFFFFFFFu;
+  const RmqCand c1{__shfl_sync(all, c.pos, first), __shfl_sync(all, c.val, first)};
+  const RmqCand c2{__shfl_sync(all, c.pos, first + 1), __shfl_sync(all, c.val, first + 1)};
+  const RmqCand c3{__shfl_sync(all, c.pos, first + 2), __shfl_sync(all, c.val, first + 2)};
+  return rmq_merge(c1, c2, c3);
 }
 
 __device__ __forceinline__ int raw_lookup(const int* __restrict__ postings,
@@ -125,10 +151,12 @@ struct PackedView {
 // (an empty index reads block 0 and the caller masks the result), both
 // payload words and each bitmap word to W-1. Both shift-by-32 guards are
 // kept: a field at bit offset 0 takes no straddle word, a width of 0 gives a
-// mask of 0. An EF block selects the j-th set bit of its bitmap with __popc
-// over the words and the 5-step binary strip inside the word; a bitpack
-// block of an EF index skips the select (the JAX version computes it and
-// throws it away).
+// mask of 0. Two dependent rounds: the block's directory, then its payload
+// words and, on an EF block, all 8 bitmap words at once (no early exit, so
+// no load waits on another's __popc). An EF block then selects the j-th set
+// bit in registers: a __popc prefix over the words, then the 5-step binary
+// strip inside the word that holds it. A bitpack block of an EF index reads
+// no bitmap word (the JAX version computes the select and throws it away).
 template <bool kEf>
 __device__ __forceinline__ int packed_lookup(const PackedView& v, int ptr) {
   const int p = min(max(ptr, 0), max(v.n_post - 1, 0));
@@ -145,21 +173,32 @@ __device__ __forceinline__ int packed_lookup(const PackedView& v, int ptr) {
   const uint32_t bo = bit & 31u;
   const uint32_t w0 = static_cast<uint32_t>(v.words[min(wi, v.W - 1)]);
   const uint32_t w1 = static_cast<uint32_t>(v.words[min(wi + 1, v.W - 1)]);
+  uint32_t bm[kEfBitmapWords];
+#pragma unroll
+  for (int t = 0; t < kEfBitmapWords; ++t) bm[t] = 0u;
+  if (kEf && is_ef) {
+#pragma unroll
+    for (int t = 0; t < kEfBitmapWords; ++t)
+      bm[t] = static_cast<uint32_t>(v.words[min(off + t, v.W - 1)]);
+  }
   const uint32_t straddle = bo == 0 ? 0u : w1 << ((32u - bo) & 31u);
   const uint32_t mask = wf == 0 ? 0u : 0xFFFFFFFFu >> (32u - min(wf, 32u));
   const uint32_t low = ((w0 >> bo) | straddle) & mask;
   if (!kEf || !is_ef) return static_cast<int>(bb + low);
-  // EF upper bits: the word that holds the j-th set bit, then its position
-  uint32_t r = j, sel_word = 0, sel_base = 0;
+  // EF upper bits: the first word whose running count passes j holds the
+  // j-th set bit, and r is j less the set bits before it (when no word
+  // holds it, word 0 is taken as zero and the strip below gives 31)
+  uint32_t r = j, sel_word = 0, sel_base = 0, before = 0;
+  bool found = false;
+#pragma unroll
   for (int t = 0; t < kEfBitmapWords; ++t) {
-    const uint32_t wt = static_cast<uint32_t>(v.words[min(off + t, v.W - 1)]);
-    const uint32_t c = __popc(wt);
-    if (r < c) {
-      sel_word = wt;
-      sel_base = static_cast<uint32_t>(t) << 5;
-      break;
-    }
-    r -= c;
+    const uint32_t c = __popc(bm[t]);
+    const bool here = !found && j < before + c;
+    sel_word = here ? bm[t] : sel_word;
+    sel_base = here ? static_cast<uint32_t>(t) << 5 : sel_base;
+    r = here ? j - before : r;
+    found = found || here;
+    before += c;
   }
   uint32_t pos = 0, cur = sel_word;
   for (uint32_t s = 16; s >= 1; s >>= 1) {

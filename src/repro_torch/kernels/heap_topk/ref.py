@@ -22,6 +22,9 @@ sends each pop's RMQ through the CUDA RMQ kernel. ``packed`` (a
 ``PackedPostings``) swaps the raw postings reads for ``packed_lookup``
 decodes, the plain version of the packed kernel; answers are the same
 because ``packed_lookup(ptr) == postings[min(ptr, n_post-1)]``.
+``count_trips=True`` adds a third result, int32[B]: the trips each lane
+ran before its answer was settled (a pop while fewer than k docids were
+out and the heap was not exhausted), which the kernel's loop runs too.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ INF = 2**31 - 1
 
 def heap_topk_ref(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
                   k: int, trips: int, n: int, n_terms: int, rmq_fn=None,
-                  packed=None):
+                  packed=None, count_trips: bool = False):
     if rmq_fn is None:
         rmq_fn = lambda p, q: rmq_window_batch(values, ib, st_pos, p, q, n=n)
     dev = term_lo.device
@@ -62,6 +65,7 @@ def heap_topk_ref(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
     out = torch.full((B, k + 1), INF, **i32)      # column k: the drop sink
     n_out = torch.zeros(B, **i32)
     prev = torch.full((B,), -1, **i32)
+    ran = torch.zeros(B, **i32)
     for i in range(trips):
         nf = 1 + 2 * i
         best = torch.argmin(val_a, dim=1)
@@ -69,6 +73,7 @@ def heap_topk_ref(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
         found = bval < INF
         is_range = kind[rows, best] == 0
         emit = found & (bval != prev)
+        ran += (found & (n_out < k)).to(torch.int32)
         out[rows, torch.where(emit & (n_out < k), n_out, k)] = bval
         n_out = n_out + emit.to(torch.int32)
         prev = torch.where(found, bval, prev)
@@ -105,4 +110,6 @@ def heap_topk_ref(values, st_pos, ib, offsets, postings, term_lo, term_hi, *,
         pos_a[:, nf + 1] = it_ptr
         val_a[:, nf + 1] = torch.where(live, it_val, INF)
     done = (n_out >= k) | (val_a.min(dim=1).values >= INF)
+    if count_trips:
+        return out[:, :k].contiguous(), done, ran
     return out[:, :k].contiguous(), done

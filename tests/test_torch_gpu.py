@@ -115,7 +115,7 @@ def test_heap_topk_kernel_matches_plain(built, k, trips):
 
 
 @pytest.mark.parametrize("codec", ["ef", "bitpack"])
-@pytest.mark.parametrize("k,trips", [(10, 12), (1, 2), (64, 128)])
+@pytest.mark.parametrize("k,trips", [(10, 12), (1, 2), (64, 128), (128, 256)])
 def test_packed_heap_topk_kernel_matches_plain(built, codec, k, trips):
     qidx, kept = built
     pk = _packed(qidx, codec)
@@ -135,6 +135,86 @@ def test_packed_heap_topk_kernel_matches_plain(built, codec, k, trips):
                                         None, tl, th, **kw, packed=pk)
     assert torch.equal(out, want_out)
     assert torch.equal(done, want_done)
+
+
+@pytest.fixture(scope="module")
+def dup_built():
+    """The duplicate-heavy corpus of the CPU tests (``_torch_pairs.build_pair(
+    500, 80, seed=9)``: the same log through the port's builder, which the
+    CPU tests hold equal to JAX's): a small vocabulary, so one docid often
+    sits in a range slot and an iterator slot at once and the first-minimum
+    tie rule decides, and duplicate runs starve lanes of their trip budget.
+    Its single-term ranges plus empty, inverted and whole-vocabulary ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    qs, sc = generate_query_log(SynthLogConfig(n_queries=500, vocab_size=80,
+                                               mean_term_chars=4.0, seed=9))
+    qidx, kept, _ = build_qac_index(qs, sc, device="cuda")
+    rng = np.random.default_rng(0)
+    _, _, _, suf, slen = parse_queries(qidx.dictionary, _partials(kept, rng, 90, 100, 25))
+    tl, th = qidx.dictionary.locate_prefix(suf, slen)
+    V = qidx.index.n_terms
+    extra_lo = torch.tensor([1, 5, 7, 0, V, V + 1, 3], dtype=torch.int32, device="cuda")
+    extra_hi = torch.tensor([V + 1, 3, 7, 2, V + 1, V + 2, 4], dtype=torch.int32, device="cuda")
+    return qidx, torch.cat([tl, extra_lo]), torch.cat([th, extra_hi])
+
+
+def _heap(qidx, codec, tl, th, k, trips, plain=False):
+    """heap_topk (codec None) or heap_topk_packed, the kernel or its plain
+    version, on these ranges."""
+    rm, idx = qidx.rmq_minimal, qidx.index
+    kw = dict(k=k, trips=trips, n=rm.n, n_terms=idx.n_terms)
+    head = (rm.values, rm.st_pos, rm.ib, idx.offsets)
+    if codec is None:
+        fn = heap_topk_ref if plain else heap_ops.heap_topk
+        return fn(*head, idx.postings, tl, th, **kw)
+    pk = _packed(qidx, codec)
+    if plain:
+        return heap_topk_ref(*head, None, tl, th, **kw, packed=pk)
+    return heap_ops.heap_topk_packed(*head, pk, tl, th, **kw)
+
+
+@pytest.mark.parametrize("codec", [None, "ef", "bitpack"])
+def test_heap_topk_kernel_keeps_the_tie_rule(dup_built, codec):
+    """The duplicate-heavy corpus at the frontend's first budget (10, 12):
+    equal docids in several slots, lanes cut short by their budget."""
+    qidx, tl, th = dup_built
+    counts = lambda: (heap_ops.launches, heap_ops.packed_launches)
+    before = counts()
+    out, done = _heap(qidx, codec, tl, th, 10, 12)
+    torch.cuda.synchronize()
+    assert counts() == ((before[0] + 1, before[1]) if codec is None
+                        else (before[0], before[1] + 1))
+    want_out, want_done = _heap(qidx, codec, tl, th, 10, 12, plain=True)
+    assert torch.equal(out, want_out)
+    assert torch.equal(done, want_done)
+    assert not bool(want_done.all())        # some lane ran out of budget
+
+
+@pytest.mark.parametrize("codec", [None, "ef", "bitpack"])
+@pytest.mark.parametrize("B", [1, 3, 37, 130])
+def test_heap_topk_kernel_at_any_batch(dup_built, codec, B):
+    """B = 1, and batches that leave a block's last warps spare (the plan
+    puts up to 4 lanes in a block)."""
+    qidx, tl, th = dup_built
+    rows = torch.arange(B, device="cuda") % tl.numel()
+    assert B % heap_ops.plan_heap_launch(10, 20, B).warps or B == 1
+    out, done = _heap(qidx, codec, tl[rows], th[rows], 10, 20)
+    torch.cuda.synchronize()
+    want_out, want_done = _heap(qidx, codec, tl[rows], th[rows], 10, 20, plain=True)
+    assert torch.equal(out, want_out)
+    assert torch.equal(done, want_done)
+
+
+@pytest.mark.parametrize("codec", [None, "ef", "bitpack"])
+def test_heap_topk_kernel_repeats_bit_for_bit(dup_built, codec):
+    qidx, tl, th = dup_built
+    first = _heap(qidx, codec, tl, th, 64, 128)
+    second = _heap(qidx, codec, tl, th, 64, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    want_out, want_done = _heap(qidx, codec, tl, th, 64, 128, plain=True)
+    assert torch.equal(first[0], want_out) and torch.equal(first[1], want_done)
 
 
 @pytest.mark.parametrize("codec", ["ef", "bitpack"])
