@@ -38,7 +38,9 @@ Phases, each printing its lines before the next starts:
      MAX_TERM_CHARS=24, a 1M-term vocabulary, ~10M completions), from a log
      with the distributions of ``SynthLogConfig``, with its postings packed
      as "ef" (the default of ``build_qac_index``) and the same lists packed
-     once more as "bitpack", each round-tripped, and their sizes;
+     once more as "bitpack", each round-tripped, and their sizes; the host
+     build's time, ``rank_rows`` and its lexsort timed again alone on the
+     index's own rows, and a cProfile of a 300,000-query build;
   6. each QAC kernel against its plain PyTorch version on the card at the
      main path's shapes (bit-identical), the packed kernels for both codecs;
      the kernel's device time per launch from ``torch.profiler``, and
@@ -72,16 +74,36 @@ Phases, each printing its lines before the next starts:
      multi-term dispatch; then one traced call of the kernel route and of the "ef" route
      (``torch.profiler``, CUDA activity) for the device's busy share and the
      kernels that take its time;
-  8. one JSON line naming every kernel with its launches, times and bound.
+  8. the online runtime and the serving cluster on that index: a keystroke
+     trace of 512 sessions typing 2 queries each (a keystroke per 150 ms a
+     session, ~36,000 requests over ~26 s) prepared at k=10; ``QACOnlineRuntime`` at
+     ``QACArch().runtime_config()`` over ``QACArch().frontend`` (the
+     arch's routes, ``specialize_list_pad=False``) with a ``JitAuditor``, in the
+     measured-replay protocol (warm-up sweep, a full pass, reset, freeze,
+     the measured pass): per-request p50, p95, p99 and p99.9 ms, path
+     counts, batches, triggers, deadline violations, queue peak, engine
+     wall against the trace's span, p99.9 against 50 ms (a report), no
+     callable minted after the freeze, and heap_topk and conjunctive_topk
+     launches equal to what the dispatch log predicts (no rmq_query); a
+     4-replica cluster (``cluster_config()``, a quarter of the sessions
+     bulk) sharing one frontend, replica 0 killed at the trace's midpoint
+     and back after 2 heartbeat timeouts: per-class p50, p99 and p99.9,
+     rejections by reason, re-routed and degraded counts, the share served
+     during the outage; every runtime row and every served cluster row
+     bit-identical to the uncached frontend at its served k;
+  9. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
 import argparse
+import cProfile
 import dataclasses
 import functools
 import json
+import os
+import pstats
 import re
 import subprocess
 import sys
@@ -102,20 +124,21 @@ PLAIN_QUERIES = 32                 # the plain route's share of the main batch
 PLAIN_TILES = 256                  # its multi-term tile cap, and the capped kernel route's
 PACKED_PLAIN_TILES = 16            # the packed plain top-k's cap in phase 6 (~0.6 s a tile "ef")
 KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
-              #          kernel it replaces, the frontend routes whose
-              #          main-batch runs launch it)
+              #          kernel it replaces, the counted runs that launch
+              #          it: frontend routes' main batches, the recsys and
+              #          LM phases, the online runtime's measured pass)
     "rmq_query": ("repro_torch.kernels.rmq.ops", "launches",
                   "src/repro_torch/csrc/rmq.cu",
                   "src/repro/kernels/rmq/kernel.py:68", ("per_pop_rmq",)),
     "heap_topk": ("repro_torch.kernels.heap_topk.ops", "launches",
                   "src/repro_torch/csrc/heap_topk.cu",
-                  "src/repro/kernels/heap_topk/kernel.py:186", ("kernels",)),
+                  "src/repro/kernels/heap_topk/kernel.py:186", ("kernels", "online")),
     "conjunctive_scan": ("repro_torch.kernels.intersect.ops", "launches",
                          "src/repro_torch/csrc/intersect.cu",
                          "src/repro/kernels/intersect/kernel.py:137", ()),
     "conjunctive_topk": ("repro_torch.kernels.intersect.ops", "topk_launches",
                          "src/repro_torch/csrc/intersect.cu",
-                         "src/repro/kernels/intersect/kernel.py:137", ("kernels",)),
+                         "src/repro/kernels/intersect/kernel.py:137", ("kernels", "online")),
     "heap_topk_packed": ("repro_torch.kernels.heap_topk.ops", "packed_launches",
                          "src/repro_torch/csrc/heap_topk.cu",
                          "src/repro/kernels/heap_topk/kernel.py:72", CODECS),
@@ -1046,6 +1069,159 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
     return main
 
 
+# --------------------------------------------------------------------------
+# phase 8: the online runtime and the serving cluster
+# --------------------------------------------------------------------------
+def uncached_rows(fe, reqs, pairs):
+    """{(parsed key, k): row} of the uncached frontend ``fe`` for every pair,
+    the requests grouped by k and run through ``complete`` 256 at a time."""
+    first = {}
+    for r in reqs:
+        first.setdefault(r.key, r)
+    want = {}
+    for k in sorted({k for _, k in pairs}):
+        todo = [first[key] for key, kk in pairs if kk == k]
+        for i in range(0, len(todo), 256):
+            b = todo[i:i + 256]
+            out = fe.complete(np.stack([r.pids for r in b]),
+                              np.asarray([r.plen for r in b], np.int32),
+                              np.stack([r.suf for r in b]),
+                              np.asarray([r.slen for r in b], np.int32), k=k)
+            want.update(((r.key, k), out[j, :k]) for j, r in enumerate(b))
+    return want
+
+
+def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts) -> dict:
+    """The online runtime and the serving cluster over the full-width index:
+    a keystroke trace of 512 sessions, the runtime's measured replay with
+    the callable audit, a 4-replica cluster's kill drill, every row held to
+    the uncached frontend. Returns the kernel counts of the runtime's
+    measured pass."""
+    from repro_torch.configs import get_arch
+    from repro_torch.obs import JitAuditor, ObsConfig, fmt, percentiles
+    from repro_torch.runtime import FaultInjector, ReplicaFault
+    from repro_torch.serve import (QACFrontend, QACOnlineRuntime, QACServingCluster,
+                                   assign_sla, prepare_requests)
+    from repro_torch.text import KeystrokeTraceConfig, generate_keystroke_trace
+
+    arch = get_arch("qac-ebay")
+    t0 = time.perf_counter()
+    tcfg = KeystrokeTraceConfig(n_sessions=512, queries_per_session=2,
+                                mean_keystroke_ms=150, seed=seed)
+    reqs = prepare_requests(qidx, generate_keystroke_trace(kept, tcfg), k=10)
+    span_s = (reqs[-1].t_us - reqs[0].t_us) / 1e6
+    say(f"[online] trace: {len(reqs)} requests from {tcfg.n_sessions} sessions typing "
+        f"{tcfg.queries_per_session} queries each (one keystroke per "
+        f"{tcfg.mean_keystroke_ms:g} ms), offered {(len(reqs) - 1) / span_s:.1f} "
+        f"requests/s over {span_s:.2f} s; made and parsed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the runtime: warm up, one full pass, reset, freeze the audit, measure
+    auditor = JitAuditor()
+    fe = arch.frontend(qidx, auditor=auditor)
+    rt = QACOnlineRuntime(fe, arch.runtime_config())
+    t0 = time.perf_counter()
+    rt.warmup(reqs)
+    rt.run_trace(reqs)
+    rt.reset()
+    auditor.freeze()
+    t_warm = time.perf_counter() - t0
+    fallbacks = fe.stats["single_fallbacks"]
+    reset_counts()
+    torch.cuda.synchronize()
+    fe.begin_dispatch_log()
+    t0 = time.perf_counter()
+    rows = rt.run_trace(reqs)
+    t_pass = time.perf_counter() - t0
+    counts = read_counts()
+    log = fe.end_dispatch_log()
+    if auditor.violations:
+        fail(f"online: {len(auditor.violations)} callables minted after freeze(): "
+             f"{[c['key'] for c in auditor.violations[:5]]}")
+    engines = [key[0] for key, _ in log]
+    want = {"heap_topk": engines.count("single") + engines.count("single_full"),
+            "conjunctive_topk": engines.count("multi")}
+    if engines.count("single_full") != fe.stats["single_fallbacks"] - fallbacks:
+        fail(f"online: {engines.count('single_full')} full-budget dispatches for "
+             f"{fe.stats['single_fallbacks'] - fallbacks} fallbacks")
+    for name, c in counts.items():
+        if c != want.get(name, 0):
+            fail(f"online: the measured pass launched {name} {c} times; its dispatch "
+                 f"log predicts {want.get(name, 0)} ({counts})")
+    snap = rt.telemetry.snapshot()
+    lat = percentiles(rt.telemetry.lat_us, (50, 95, 99, 99.9), suffix="", mean=True,
+                      vmax=True)
+    ms = {k: v / 1e3 for k, v in lat.items()}
+    say(f"[online] runtime {arch.runtime_config()}: warm-up (sweep, a full pass, reset) "
+        f"{t_warm:.1f} s, measured pass {t_pass:.1f} s; {len(auditor.compiles)} "
+        f"callables minted in warm-up, 0 after freeze() (audit closed)")
+    say(f"[online] per-request latency ms: p50 {ms['p50']:.3f} p95 {ms['p95']:.3f} "
+        f"p99 {ms['p99']:.3f} p99.9 {ms['p99.9']:.3f} mean {ms['mean']:.3f} max "
+        f"{ms['max']:.3f} over {snap['n_requests']} requests on {smi}")
+    say(f"[online] paths {snap['paths']}; {snap['n_batches']} batches, mean size "
+        f"{snap['mean_batch_size']:.1f}, max {max(snap['batch_hist'])}; triggers "
+        f"{snap['triggers']}; deadline violations {snap['deadline_violations']}, queue "
+        f"peak {snap['queue_peak']}; engine wall {snap['engine_wall_us'] / 1e6:.3f} s of "
+        f"the trace's {span_s:.3f} s ({snap['engine_wall_us'] / 1e6 / span_s:.3f})")
+    slo_ms = ObsConfig().slo_target_us / 1e3
+    say(f"[online] p99.9 {ms['p99.9']:.3f} ms against the {slo_ms:g} ms objective: "
+        f"{'holds' if ms['p99.9'] <= slo_ms else 'missed'} (a report, not a gate)")
+    say(f"[online] launches in the measured pass {counts}: heap_topk = "
+        f"{engines.count('single')} single-term dispatches + "
+        f"{engines.count('single_full')} full-budget fallbacks, conjunctive_topk = "
+        f"{engines.count('multi')} multi-term dispatches, as the dispatch log predicts")
+
+    # the cluster: a kill drill on replica 0 at the trace's midpoint, back
+    # after 2 heartbeat timeouts; one warm frontend shared by every replica
+    cl_cfg = arch.cluster_config()
+    sla = assign_sla(reqs, bulk_fraction=0.25)
+    t_kill = reqs[len(reqs) // 2].t_us
+    t_up = t_kill + 2 * cl_cfg.heartbeat_timeout_us
+    shared = arch.frontend(qidx)
+    cluster = QACServingCluster(qidx, cl_cfg, arch.runtime_config(),
+                                frontends=[shared] * cl_cfg.n_replicas,
+                                injector=FaultInjector([], replica_faults=[
+                                    ReplicaFault(0, t_kill, t_up)]))
+    t0 = time.perf_counter()
+    res = cluster.replay(reqs, sla)
+    t_cluster = time.perf_counter() - t0
+    cs = cluster.telemetry.snapshot()
+    say(f"[online] cluster {cl_cfg}: {sum(s == 'bulk' for s in sla)} bulk requests; "
+        f"replica 0 down {t_kill / 1e6:.3f}-{t_up / 1e6:.3f} s; replay (warm pass, "
+        f"reset, measured pass) {t_cluster:.1f} s")
+    for cls in ("interactive", "bulk"):
+        p = percentiles(cluster.telemetry.lat_us[cls], (50, 99, 99.9), suffix="")
+        say(f"[online] cluster {cls}: {cs[f'{cls}_served']} served, ms p50 "
+            f"{fmt(p['p50'], 1e3, 3)} p99 {fmt(p['p99'], 1e3, 3)} p99.9 "
+            f"{fmt(p['p99.9'], 1e3, 3)} on {smi}")
+    during = [r for q, r in zip(reqs, res) if t_kill <= q.t_us < t_up]
+    say(f"[online] cluster: rejected {cs['rejected']} by reason {cs['shed']}, re-routed "
+        f"{cs['rerouted']}, degraded {sum(r.degraded for r in res)}; deaths "
+        f"{cs['deaths']}, readmissions {cs['readmissions']}, per replica "
+        f"{cs['per_replica']}; served during the outage "
+        f"{sum(r.status == 'ok' for r in during)} of {len(during)}")
+    if not cs["deaths"] or not cs["readmissions"]:
+        fail("online: the kill drill saw no death or no readmission")
+
+    # every runtime row and every served cluster row against the uncached
+    # frontend at the k it was served with
+    t0 = time.perf_counter()
+    served = [(q, r) for q, r in zip(reqs, res) if r.status == "ok"]
+    pairs = {(q.key, q.k) for q in reqs} | {(q.key, r.k_served) for q, r in served}
+    want_rows = uncached_rows(QACFrontend(qidx, k=10), reqs, pairs)
+    for q, row in zip(reqs, rows):
+        if row.dtype != np.int32 or not np.array_equal(row, want_rows[q.key, q.k]):
+            fail(f"online: runtime row of {q.query!r} differs from the uncached frontend")
+    for q, r in served:
+        if not np.array_equal(r.row, want_rows[q.key, r.k_served]):
+            fail(f"online: cluster row of {q.query!r} (replica {r.replica}, k "
+                 f"{r.k_served}) differs from the uncached frontend")
+    say(f"[online] {len(rows)} runtime rows and {len(served)} served cluster rows "
+        f"bit-identical to the uncached frontend ({len(pairs)} distinct (query, k) "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--queries", type=int, default=13_500_000,
@@ -1066,6 +1242,7 @@ def main() -> int:
     from repro_torch import backend
     from repro_torch.core import build_qac_index, parse_queries
     from repro_torch.core.codecs import pack_postings, unpack_postings
+    from repro_torch.core.completions import rank_rows
     from repro_torch.kernels.heap_topk.ref import heap_topk_ref
     from repro_torch.core.search import (conjunctive_lanes,
                                          single_term_topk_bounded_batch)
@@ -1176,12 +1353,32 @@ def main() -> int:
     queries, scores = make_log(args.queries, args.vocab, args.seed)
     t_log = time.perf_counter() - t0
     t0 = time.perf_counter()
-    qidx, kept, _ = build_qac_index(queries, scores, k_default=10,
-                                    postings_codec="ef", device=dev)
+    qidx, kept, sc_kept = build_qac_index(queries, scores, k_default=10,
+                                          postings_codec="ef", device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     del queries, scores
     idx, comps, rm = qidx.index, qidx.completions, qidx.rmq_minimal
+    # the build's ranking step again, on its own rows (the completions in
+    # lexicographic order) and scores: rank_rows, and its lexsort alone
+    docids_h = comps.docids.cpu().numpy()
+    rows_h = comps.fwd_terms.cpu().numpy()[docids_h]
+    t0 = time.perf_counter()
+    d_of_row, _ = rank_rows(rows_h, sc_kept)
+    t_rank = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.lexsort(tuple(rows_h[:, j] for j in range(rows_h.shape[1] - 1, -1, -1)))
+    t_lexsort = time.perf_counter() - t0
+    if not np.array_equal(d_of_row, docids_h):
+        fail("rank_rows over the index's own rows gives other docids")
+    del docids_h, rows_h, d_of_row, sc_kept
+    # where the host build's time goes: cProfile of a 300,000-query build
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(build_qac_index, *make_log(300_000, 100_000, args.seed),
+                 k_default=10, postings_codec="ef", device="cpu")
+    t_prof = time.perf_counter() - t0
+    top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:8]
     offs_h = idx.offsets.cpu().numpy()
     post_h = idx.postings.cpu().numpy()
     t0 = time.perf_counter()
@@ -1200,6 +1397,12 @@ def main() -> int:
         f"postings, longest list {int(np.diff(offs_h).max())}, "
         f"{dev_bytes / 2**20:.1f} MiB on the card | log {t_log:.1f} s, "
         f"host build {t_build:.1f} s (queries={args.queries}, vocab={args.vocab})")
+    say(f"[index] of the host build, rank_rows {t_rank:.2f} s (its lexsort of the "
+        f"{comps.n} x {comps.max_terms} rows {t_lexsort:.2f} s)")
+    say(f"[index] cProfile of build_qac_index at 300,000 queries, vocabulary "
+        f"100,000, on the host ({t_prof:.2f} s profiled), by own time: " + "; ".join(
+            f"{os.path.basename(fn)}:{ln}({name}) {tt:.3f} s own, {ct:.3f} s in all, "
+            f"{nc} calls" for (fn, ln, name), (_, nc, tt, ct, _) in top))
     say(f"[index] the host build includes packing the postings as ef and its "
         f"round-trip check; bitpack packing of the same lists {t_pack:.1f} s, "
         f"its round trip {t_unpack:.1f} s")
@@ -1559,7 +1762,12 @@ def main() -> int:
 
     lap(7)
 
-    # ---- 8. kernels line ----------------------------------------------------
+    # ---- 8. the online runtime and the cluster ------------------------------
+    counted["online"] = online_phase(torch, qidx, kept, args.seed, smi, reset_counts,
+                                     read_counts)
+    lap(8)
+
+    # ---- 9. kernels line ----------------------------------------------------
     launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
     say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []

@@ -1,5 +1,6 @@
 """Arch registry of the ported architectures: ``get_arch(<id>)``. One
-module per architecture, with the JAX package's configs' values."""
+module per architecture, with the JAX package's configs' values, and the
+paper's own system (``qac-ebay``)."""
 from __future__ import annotations
 
 from .base import Cell  # noqa: F401
@@ -8,10 +9,11 @@ from .din import ARCH as _din
 from .fm import ARCH as _fm
 from .gemma2_2b import ARCH as _gemma2
 from .mind import ARCH as _mind
+from .qac_ebay import ARCH as _qac
 from .qwen3_14b import ARCH as _qwen3
 from .smollm_360m import ARCH as _smollm
 
-ARCHS = {a.arch_id: a for a in [_smollm, _qwen3, _gemma2, _mind, _bst, _din, _fm]}
+ARCHS = {a.arch_id: a for a in [_smollm, _qwen3, _gemma2, _mind, _bst, _din, _fm, _qac]}
 
 
 def get_arch(arch_id: str):

@@ -15,7 +15,7 @@ from ..backend import resolve_device
 from .codecs import CODECS
 from .types import MAX_TERMS, MAX_TERM_CHARS
 from .dictionary import TermDictionary
-from .completions import Completions
+from .completions import Completions, rank_rows
 from .inverted_index import InvertedIndex
 from .rmq import RangeMin
 from .strings import encode_strings
@@ -36,7 +36,19 @@ class QACIndex:
 
 
 def tokenize(s: str) -> list[str]:
-    return [t for t in s.strip().split() if t]
+    return s.split()      # splits on any whitespace run, drops empty tokens
+
+
+def _token_counts(keys: list[str]) -> np.ndarray:
+    """Tokens per key (int64[N]) of keys whose tokens are joined by single
+    spaces, from their UTF-8 bytes joined by newlines (no key holds one)."""
+    if not keys:
+        return np.zeros(0, np.int64)
+    b = np.frombuffer("\n".join(keys).encode("utf-8"), dtype=np.uint8)
+    ends = np.append(np.flatnonzero(b == 10), b.size)
+    spaces = np.diff(np.searchsorted(np.flatnonzero(b == 32), ends), prepend=0)
+    empty = np.diff(ends, prepend=-1) == 1
+    return np.where(empty, 0, spaces + 1)
 
 
 def build_corpus(queries: Sequence[str], scores: Sequence[float],
@@ -46,23 +58,37 @@ def build_corpus(queries: Sequence[str], scores: Sequence[float],
     """Dedup + tokenize a scored query log (host side).
 
     Returns (dictionary, term_rows int32[N,M], scores float64[N], kept_strings).
+    Each log query is tokenized once, into its key (its tokens joined by
+    single spaces). A key's score is the max over its log entries, NaN
+    entries ignored (-inf when all are NaN). No token holds whitespace, so
+    one split of all kept keys joined gives their tokens in order, and numpy
+    scatters their 1-based lexicographic ids (ranks in ``sorted``, i.e. by
+    code point) into the rows.
     """
-    seen = {}
-    for q, s in zip(queries, scores):
-        toks = tokenize(q)
-        if not toks or len(toks) > max_terms:
-            continue
-        key = " ".join(toks)
-        seen[key] = max(seen.get(key, -np.inf), float(s))
-    kept = sorted(seen.keys())
-    sc = np.asarray([seen[kq] for kq in kept], dtype=np.float64)
-    vocab = sorted({t for q in kept for t in tokenize(q)})
+    keys = [" ".join(q.split()) for q in queries]     # the one tokenization
+    sc = np.asarray(scores, dtype=np.float64).reshape(-1)
+    sc = np.where(np.isnan(sc), -np.inf, sc)
+    # entries by key, each key's by descending score (a stable sort of a
+    # stable sort), so each key's first entry holds its score: the first of
+    # its equal maxima in log order
+    order = np.asarray(sorted(np.argsort(-sc, kind="stable").tolist(),
+                              key=keys.__getitem__), dtype=np.int64)
+    by_key = np.array(keys, dtype=object)[order]
+    first = np.ones(len(keys), dtype=bool)
+    first[1:] = by_key[1:] != by_key[:-1]
+    kept, sc = by_key[first], sc[order[first]]
+    n_tok = _token_counts(kept.tolist())
+    ok = (n_tok > 0) & (n_tok <= max_terms)   # no empty key, none too long
+    kept, sc, n_tok = kept[ok].tolist(), sc[ok], n_tok[ok]
+    flat = "\n".join(kept).split()
+    vocab = sorted(set(flat))
     dictionary = TermDictionary.build(vocab, max_term_chars, device=device)
-    tid = {t: i + 1 for i, t in enumerate(vocab)}  # 1-based lexicographic ids
+    tid = dict(zip(vocab, range(1, len(vocab) + 1)))  # 1-based lexicographic ids
+    ids = np.fromiter(map(tid.__getitem__, flat), np.int32, len(flat))
+    row = np.repeat(np.arange(len(kept)), n_tok)
+    col = np.arange(len(flat)) - np.repeat(np.cumsum(n_tok) - n_tok, n_tok)
     rows = np.zeros((len(kept), max_terms), dtype=np.int32)
-    for i, q in enumerate(kept):
-        for j, t in enumerate(tokenize(q)):
-            rows[i, j] = tid[t]
+    rows[row, col] = ids
     return dictionary, rows, sc, kept
 
 
@@ -85,13 +111,8 @@ def build_qac_index(queries: Sequence[str], scores: Sequence[float],
     device = resolve_device(device)
     dictionary, rows, sc, kept = build_corpus(
         queries, scores, max_terms, max_term_chars, device=device)
-    comps = Completions.build(rows, sc, device=device)
-    # row -> docid mapping on host for the index builder
-    order = np.lexsort(
-        tuple(rows[:, j] for j in range(rows.shape[1] - 1, -1, -1)) + (-sc,)
-    )
-    d_of_row = np.empty(len(rows), dtype=np.int32)
-    d_of_row[order] = np.arange(len(rows), dtype=np.int32)
+    d_of_row, lex = rank_rows(rows, sc)
+    comps = Completions.build(rows, d_of_row, lex, device=device)
     inv = InvertedIndex.build(rows, d_of_row, dictionary.n_terms,
                               postings_codec, device=device)
     qidx = QACIndex(

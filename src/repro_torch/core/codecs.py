@@ -44,164 +44,12 @@ import dataclasses
 import numpy as np
 import torch
 
-_U64 = np.uint64
-_FULL64 = (1 << 64) - 1
 _M32 = 0xFFFFFFFF
 
 PACK_BLOCK = 128          # postings per block
 EF_BITMAP_WORDS = 8       # 256-bit upper-bits bitmap per EF block
 _META_EF_BIT = 6          # meta = width | (is_ef << _META_EF_BIT)
 CODECS = ("ef", "bitpack")
-
-
-# ---------------------------------------------------------------- bit I/O
-class BitWriter:
-    """Append-only little-endian bit stream over uint64 words.
-
-    ``write``/``unary`` are O(bits/64) scalar ops, ``write_many``/
-    ``unary_many`` are vectorized (one ``bitwise_or.at`` scatter per word
-    touched).
-    """
-
-    def __init__(self):
-        self._words = np.zeros(4, dtype=_U64)
-        self._nbits = 0
-
-    def _reserve(self, nbits: int) -> None:
-        need = (nbits + 63) >> 6
-        if need > len(self._words):
-            grown = np.zeros(max(need, 2 * len(self._words)), dtype=_U64)
-            grown[: len(self._words)] = self._words
-            self._words = grown
-
-    def write(self, value: int, n_bits: int) -> None:
-        if n_bits <= 0:
-            return
-        v = int(value) & ((1 << n_bits) - 1)
-        pos = self._nbits
-        self._reserve(pos + n_bits)
-        self._nbits = pos + n_bits
-        w, b = divmod(pos, 64)
-        while True:
-            self._words[w] |= _U64((v << b) & _FULL64)
-            take = 64 - b
-            if n_bits <= take:
-                return
-            v >>= take
-            n_bits -= take
-            w += 1
-            b = 0
-
-    def write_many(self, values: np.ndarray, n_bits: int) -> None:
-        """Append ``len(values)`` fields of ``n_bits`` bits each."""
-        vals = np.asarray(values).astype(_U64)
-        n = len(vals)
-        if n == 0 or n_bits == 0:
-            return
-        assert 0 < n_bits <= 64
-        if n_bits < 64:
-            vals = vals & _U64((1 << n_bits) - 1)
-        pos0 = self._nbits
-        self._reserve(pos0 + n * n_bits)
-        pos = _U64(pos0) + np.arange(n, dtype=_U64) * _U64(n_bits)
-        w = (pos >> _U64(6)).astype(np.int64)
-        b = pos & _U64(63)
-        np.bitwise_or.at(self._words, w, vals << b)
-        spill = (b + _U64(n_bits)) > _U64(64)
-        if spill.any():
-            bs = b[spill]
-            np.bitwise_or.at(self._words, w[spill] + 1,
-                             vals[spill] >> (_U64(64) - bs))
-        self._nbits = pos0 + n * n_bits
-
-    def unary(self, n: int) -> None:
-        self.write(0, n)
-        self.write(1, 1)
-
-    def unary_many(self, gaps: np.ndarray) -> None:
-        """Append one unary code (``gap`` zeros then a one) per entry."""
-        g = np.asarray(gaps, dtype=np.int64)
-        if len(g) == 0:
-            return
-        stops = self._nbits + np.cumsum(g + 1) - 1
-        end = int(stops[-1]) + 1
-        self._reserve(end)
-        np.bitwise_or.at(self._words, (stops >> 6).astype(np.int64),
-                         _U64(1) << (stops.astype(_U64) & _U64(63)))
-        self._nbits = end
-
-    def pad_to(self, n_bits: int) -> None:
-        """Advance the cursor to an absolute bit position (zero fill)."""
-        assert n_bits >= self._nbits
-        self._reserve(n_bits)
-        self._nbits = n_bits
-
-    def n_bits(self) -> int:
-        return self._nbits
-
-    def array(self) -> np.ndarray:
-        return self._words[: max(1, (self._nbits + 63) >> 6)].copy()
-
-
-class BitReader:
-    """Cursor over a BitWriter stream; same word-level discipline."""
-
-    def __init__(self, words: np.ndarray):
-        self.words = np.asarray(words, dtype=_U64)
-        self.pos = 0
-
-    def read(self, n_bits: int) -> int:
-        out = 0
-        got = 0
-        while got < n_bits:
-            w, b = divmod(self.pos, 64)
-            take = min(64 - b, n_bits - got)
-            out |= ((int(self.words[w]) >> b) & ((1 << take) - 1)) << got
-            got += take
-            self.pos += take
-        return out
-
-    def read_many(self, count: int, n_bits: int) -> np.ndarray:
-        """Read ``count`` fields of ``n_bits`` bits -> int64[count]."""
-        if count == 0 or n_bits == 0:
-            return np.zeros(count, dtype=np.int64)
-        assert 0 < n_bits <= 63
-        L = len(self.words)
-        pos = _U64(self.pos) + np.arange(count, dtype=_U64) * _U64(n_bits)
-        w = (pos >> _U64(6)).astype(np.int64)
-        b = pos & _U64(63)
-        lo = self.words[w] >> b
-        w1 = np.minimum(w + 1, L - 1)
-        sh = (_U64(64) - b) & _U64(63)
-        hi = np.where(b == 0, _U64(0), self.words[w1] << sh)
-        out = (lo | hi) & _U64((1 << n_bits) - 1)
-        self.pos += count * n_bits
-        return out.astype(np.int64)
-
-    def unary(self) -> int:
-        n = 0
-        while True:
-            w, b = divmod(self.pos, 64)
-            bit = (int(self.words[w]) >> b) & 1
-            self.pos += 1
-            if bit:
-                return n
-            n += 1
-
-    def unary_many(self, count: int) -> np.ndarray:
-        """Decode ``count`` unary codes -> int64[count] (the zero runs)."""
-        if count == 0:
-            return np.zeros(0, dtype=np.int64)
-        w0 = self.pos >> 6
-        tail = self.words[w0:]
-        if not np.little_endian:  # pragma: no cover - scalar fallback
-            return np.array([self.unary() for _ in range(count)], np.int64)
-        bits = np.unpackbits(tail.view(np.uint8), bitorder="little")
-        bits = bits[self.pos - (w0 << 6):]
-        ones = np.flatnonzero(bits)[:count]
-        assert len(ones) == count, "unary stream truncated"
-        self.pos += int(ones[-1]) + 1
-        return np.diff(ones, prepend=np.int64(-1)) - 1
 
 
 def _bit_length(x: np.ndarray) -> np.ndarray:
@@ -271,24 +119,23 @@ def pack_postings(postings: np.ndarray, codec: str = "ef", *,
     wordoff = np.concatenate([[0], np.cumsum(nwords)[:-1]])
     total = int(nwords.sum())
 
-    # blocks are uint64-aligned (every payload is an even word count), so
-    # one sequential BitWriter produces the whole stream
-    bw = BitWriter()
-    for b in range(nb):
-        if use_ef[b]:
-            start = bw.n_bits()
-            bw.unary_many(np.diff(d[b] >> int(l[b]), prepend=np.int64(0)))
-            bw.pad_to(start + EF_BITMAP_WORDS * 32)
-            bw.write_many(d[b] & ((1 << int(l[b])) - 1), int(l[b]))
-        elif width[b] > 0:
-            bw.write_many(d[b], int(width[b]))
-    assert bw.n_bits() == total * 32
-    w64 = np.zeros(max(total + 1, 2) // 2, dtype=_U64)
-    got = bw.array()[: len(w64)]
-    w64[: len(got)] = got
-    words32 = np.empty(max(total, 1), dtype=np.uint32)
-    words32[0::2] = (w64 & _U64(_M32)).astype(np.uint32)[: len(words32[0::2])]
-    words32[1::2] = (w64 >> _U64(32)).astype(np.uint32)[: len(words32[1::2])]
+    # every block's payload, grouped by field width: the stream's bits run
+    # LSB-first through little-endian int32 words, as numpy's packbits with
+    # bitorder="little" lays them out
+    words32 = np.zeros(max(total, 1), dtype=np.uint32)
+    ef_rows = np.flatnonzero(use_ef)
+    if ef_rows.size:
+        high = d[ef_rows] >> l[ef_rows, None]
+        bits = np.zeros((ef_rows.size, EF_BITMAP_WORDS * 32), dtype=np.uint8)
+        bits[np.arange(ef_rows.size)[:, None], high + np.arange(PACK_BLOCK)] = 1
+        words32[wordoff[ef_rows, None] + np.arange(EF_BITMAP_WORDS)] = np.packbits(
+            bits, axis=1, bitorder="little").view("<u4")
+    lows = np.where(use_ef[:, None], d & ((1 << l[:, None]) - 1), d)
+    skip = np.where(use_ef, EF_BITMAP_WORDS, 0)
+    for w in np.unique(wfield[wfield > 0]).tolist():
+        for rows in _chunks(np.flatnonzero(wfield == w)):
+            words32[(wordoff + skip)[rows, None] + np.arange(4 * w)] = _pack_fields(
+                lows[rows], w)
 
     meta = wfield | (use_ef.astype(np.int64) << _META_EF_BIT)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -305,25 +152,45 @@ def unpack_postings(pk: PackedPostings) -> np.ndarray:
     base = pk.base.cpu().numpy().astype(np.int64)
     meta = pk.meta.cpu().numpy()
     wordoff = pk.wordoff.cpu().numpy().astype(np.int64)
-    nb = len(base)
-    out = np.empty(nb * PACK_BLOCK, dtype=np.int64)
-    for b in range(nb):
-        w = int(meta[b]) & ((1 << _META_EF_BIT) - 1)
-        is_ef = (int(meta[b]) >> _META_EF_BIT) & 1
-        nw = (EF_BITMAP_WORDS + 4 * w) if is_ef else 4 * w
-        seg = words[wordoff[b] : wordoff[b] + nw].astype(_U64)
-        w64 = seg[0::2] | (seg[1::2] << _U64(32))
-        if nw == 0:
-            d = np.zeros(PACK_BLOCK, dtype=np.int64)
-        elif is_ef:
-            r = BitReader(w64)
-            high = np.cumsum(r.unary_many(PACK_BLOCK))
-            r.pos = EF_BITMAP_WORDS * 32
-            d = (high << w) | r.read_many(PACK_BLOCK, w)
-        else:
-            d = BitReader(w64).read_many(PACK_BLOCK, w)
-        out[b * PACK_BLOCK : (b + 1) * PACK_BLOCK] = base[b] + d
-    return out[: pk.n_post].astype(np.int32)
+    width = meta & ((1 << _META_EF_BIT) - 1)
+    is_ef = ((meta >> _META_EF_BIT) & 1).astype(bool)
+    d = np.zeros((len(base), PACK_BLOCK), dtype=np.int64)
+    skip = np.where(is_ef, EF_BITMAP_WORDS, 0)
+    for w in np.unique(width[width > 0]).tolist():
+        for rows in _chunks(np.flatnonzero(width == w)):
+            d[rows] = _unpack_fields(
+                words[(wordoff + skip)[rows, None] + np.arange(4 * w)], w)
+    ef_rows = np.flatnonzero(is_ef)
+    if ef_rows.size:
+        bits = np.unpackbits(np.ascontiguousarray(
+            words[wordoff[ef_rows, None] + np.arange(EF_BITMAP_WORDS)]).view(np.uint8),
+            axis=1, bitorder="little")
+        r, pos = np.nonzero(bits)
+        assert r.size == ef_rows.size * PACK_BLOCK, "EF bitmap corrupt"
+        high = pos.reshape(ef_rows.size, PACK_BLOCK) - np.arange(PACK_BLOCK)
+        d[ef_rows] |= high << width[ef_rows, None]
+    out = base[:, None] + d
+    return out.reshape(-1)[: pk.n_post].astype(np.int32)
+
+
+def _chunks(rows: np.ndarray, size: int = 4096):
+    """``rows`` in slices of at most ``size`` (bounds the bit matrices)."""
+    return [rows[i:i + size] for i in range(0, rows.size, size)]
+
+
+def _pack_fields(vals: np.ndarray, w: int) -> np.ndarray:
+    """int64[nb, PACK_BLOCK] values of ``w`` bits -> uint32[nb, 4w], value i
+    of a row at bits [i*w, (i+1)*w) of its words."""
+    bits = ((vals[:, :, None] >> np.arange(w)) & 1).astype(np.uint8)
+    return np.packbits(bits.reshape(len(vals), -1), axis=1,
+                       bitorder="little").view("<u4")
+
+
+def _unpack_fields(words: np.ndarray, w: int) -> np.ndarray:
+    """``_pack_fields`` inverted: uint32[nb, 4w] -> int64[nb, PACK_BLOCK]."""
+    bits = np.unpackbits(np.ascontiguousarray(words).view(np.uint8), axis=1,
+                         bitorder="little").reshape(len(words), PACK_BLOCK, w)
+    return (bits.astype(np.int64) << np.arange(w)).sum(-1)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -22,16 +22,12 @@ class Completions:
     max_terms: int
 
     @staticmethod
-    def build(term_rows: np.ndarray, scores: np.ndarray, *,
-              device: torch.device) -> "Completions":
+    def build(term_rows: np.ndarray, docid_of_row: np.ndarray, lex: np.ndarray,
+              *, device: torch.device) -> "Completions":
         """term_rows: int32[N, M] 1-based term ids (0 pad), one row per
-        completion. docid = rank under (-score, lexicographic row)."""
-        term_rows = np.asarray(term_rows, dtype=np.int32)
+        completion; ``rank_rows(term_rows, scores)`` gives (docid_of_row,
+        lex): docid = rank under (-score, lexicographic row)."""
         n, m = term_rows.shape
-        order = np.lexsort(tuple(term_rows[:, j] for j in range(m - 1, -1, -1)) + (-scores,))
-        docid_of_row = np.empty(n, dtype=np.int32)
-        docid_of_row[order] = np.arange(n, dtype=np.int32)
-        lex = np.lexsort(tuple(term_rows[:, j] for j in range(m - 1, -1, -1)))
         cols = term_rows[lex].T.copy()                      # [M, N]
         docids = docid_of_row[lex].copy()                   # [N]
         fwd = np.zeros_like(term_rows)
@@ -50,3 +46,16 @@ class Completions:
         idx = docid.clamp(0, self.n - 1)
         row = torch.where(valid[..., None], self.fwd_terms[idx], 0)
         return row, torch.where(valid, self.n_terms_per[idx], 0)
+
+
+def rank_rows(term_rows: np.ndarray, scores: np.ndarray):
+    """(docid_of_row int32[N], lex int64[N]): each row's docid, its rank
+    under (-score, lexicographic row), and the rows' lexicographic order.
+    The docid order is the lexicographic one stably sorted by -score, which
+    is the same permutation as a lexsort on (-score, row)."""
+    m = term_rows.shape[1]
+    lex = np.lexsort(tuple(term_rows[:, j] for j in range(m - 1, -1, -1)))
+    order = lex[np.argsort(-np.asarray(scores)[lex], kind="stable")]
+    docid_of_row = np.empty(len(term_rows), dtype=np.int32)
+    docid_of_row[order] = np.arange(len(term_rows), dtype=np.int32)
+    return docid_of_row, lex

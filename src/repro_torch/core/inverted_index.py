@@ -45,12 +45,13 @@ class InvertedIndex:
         t = term_rows[mask]
         d = docs[mask]
         # dedup (term, doc) pairs — a term may repeat inside one completion
-        key = t * (np.int64(docid_of_row.max()) + 1) + d
-        uniq = np.unique(key)
+        # (np.unique would hash the keys before sorting them on numpy >= 2.3)
+        key = np.sort(t * (np.int64(docid_of_row.max()) + 1) + d)
+        first = np.ones(len(key), dtype=bool)
+        first[1:] = key[1:] != key[:-1]
+        uniq = key[first]          # sorted: by term, then docid within a term
         t = (uniq // (np.int64(docid_of_row.max()) + 1)).astype(np.int64)
         d = (uniq % (np.int64(docid_of_row.max()) + 1)).astype(np.int64)
-        order = np.lexsort((d, t))
-        t, d = t[order], d[order]
         cnt = np.bincount(t, minlength=n_terms + 1)  # indexed by 1-based term id
         offsets = np.zeros(n_terms + 2, dtype=np.int32)
         offsets[1 : len(cnt) + 1] = np.cumsum(cnt)

@@ -8,17 +8,21 @@
     check, first-k compaction.
 
 Kernel routing on the card (``use_kernel=True``, the default there): the
-single-term engine runs the whole trip loop in the ``heap_topk`` kernel
-unless the caller passes ``heap_kernel=False``, and then it runs the same
-loop one pop at a time with each pop's RMQ in the ``rmq`` kernel; the
-multi-term engine runs its whole candidate loop in one launch of the
-``intersect`` top-k kernel. ``use_kernel=False``
-runs the plain PyTorch versions on whatever device the index is on. Routing
-never changes answers. The index lives in device memory, so no route is
-gated on its size; a routing rule measured on the card is still to come.
+single-term engine runs the whole trip loop in the ``heap_topk`` kernel;
+the multi-term engine runs its whole candidate loop in one launch of the
+``intersect`` top-k kernel. That is the route rule, measured on an H100:
+``heap_topk`` beat the per-pop route (the same loop one pop at a time, each
+pop's RMQ in the ``rmq`` kernel) by ~80x in device time at B = 1, 8, 64
+and 256, so ``heap_kernel=False``, which takes the per-pop route, stays
+only as the tests' way to reach it. ``use_kernel=False`` runs the plain
+PyTorch versions on whatever device the index is on. Routing never changes
+answers. The index lives in device memory, so no route is gated on its
+size.
 
 ``postings_codec`` picks the postings both engines read: None, "auto" and
-"raw" read raw CSR; "ef" and "bitpack" pin the index's compressed postings
+"raw" read raw CSR, the serving default (packed postings were no faster
+single-term and slower multi-term on an H100); "ef" and "bitpack" pin the
+index's compressed postings
 (``index.packed``, which must exist with that codec), decoded per read by
 the packed kernels or their plain versions. The per-pop RMQ route and the
 multi-term candidates (the shortest prefix list) read raw CSR on every

@@ -18,12 +18,18 @@ def n_chunks(max_chars: int) -> int:
 
 
 def encode_strings(strings, max_chars: int) -> np.ndarray:
-    """List of bytes/str -> uint8[N, max_chars] padded with 0 (host-side)."""
-    out = np.zeros((len(strings), max_chars), dtype=np.uint8)
-    for i, s in enumerate(strings):
-        b = s.encode("utf-8") if isinstance(s, str) else bytes(s)
-        b = b[:max_chars]
-        out[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+    """List of bytes/str -> uint8[N, max_chars] padded with 0 (host-side).
+
+    Each string's first ``max_chars`` bytes of UTF-8, scattered from one
+    concatenated buffer."""
+    bs = [s.encode("utf-8") if isinstance(s, str) else bytes(s) for s in strings]
+    n = np.fromiter(map(len, bs), np.int64, len(bs))
+    keep = np.minimum(n, max_chars)
+    row = np.repeat(np.arange(len(bs)), keep)
+    col = np.arange(int(keep.sum())) - np.repeat(np.cumsum(keep) - keep, keep)
+    src = np.frombuffer(b"".join(bs), dtype=np.uint8)
+    out = np.zeros((len(bs), max_chars), dtype=np.uint8)
+    out[row, col] = src[np.repeat(np.cumsum(n) - n, keep) + col]
     return out
 
 

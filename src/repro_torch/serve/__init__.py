@@ -1,5 +1,31 @@
+"""QAC serving stack, bottom to top (each layer only knows the one below):
+
+  frontend   (frontend.py)  batch-in/batch-out routed engine dispatch:
+                            class routing (single vs conjunctive), pow2
+                            batch/k buckets, per-key callable cache.
+  runtime    (runtime.py)   one replica: deadline-aware micro-batching over
+                            individually arriving keystrokes, plus the
+                            generation-tagged exact-prefix LRU and
+                            session-filter cache tiers.
+  cluster    (cluster.py)   N replicas behind session-affinity dispatch:
+                            SLA admission ladder, heartbeat failover,
+                            cluster-wide generation swap propagation.
+
+Every fast path answers bit-identically to its oracle: the engines to their
+plain versions, the runtime and cluster rows to an uncached frontend of the
+generation that answered (``check_cluster_parity_timed``).
+"""
+from .cluster import (ClusterConfig, ClusterResult, QACServingCluster,
+                      assign_sla, check_cluster_parity,
+                      check_cluster_parity_timed, rendezvous_route)
 from .frontend import QACFrontend, route_classes
 from .qac import serve_multi_term, serve_single_term, serve_single_term_full
+from .runtime import (QACOnlineRuntime, QACRequest, RuntimeConfig,
+                      prepare_requests, run_naive_trace)
 
-__all__ = ["QACFrontend", "route_classes", "serve_multi_term",
-           "serve_single_term", "serve_single_term_full"]
+__all__ = ["ClusterConfig", "ClusterResult", "QACFrontend", "QACOnlineRuntime",
+           "QACRequest", "QACServingCluster", "RuntimeConfig", "assign_sla",
+           "check_cluster_parity", "check_cluster_parity_timed",
+           "prepare_requests", "rendezvous_route", "route_classes",
+           "run_naive_trace", "serve_multi_term", "serve_single_term",
+           "serve_single_term_full"]

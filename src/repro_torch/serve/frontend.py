@@ -40,17 +40,25 @@ def route_classes(prefix_len):
 class QACFrontend:
     """Batched QAC completion with host-side class routing.
 
-    ``trips`` is the single-term pop budget (default k + 2).
-    ``heap_kernel=False`` sends the single-term class through the per-pop
-    RMQ-kernel route instead of the ``heap_topk`` kernel; ``use_kernel``
+    ``trips`` is the single-term pop budget (default k + 2). ``use_kernel``
     (default: true on the card) picks the CUDA kernels over the plain
-    PyTorch versions. ``specialize_list_pad`` derives the multi-term probe
-    depth from the longest list each sub-batch probes instead of the
-    longest list in the index. ``postings_codec`` ("ef" or "bitpack")
-    sends both engines through the index's compressed postings, decoded in
-    the packed kernels (or their plain versions); the index must have been
-    packed with that codec (``ValueError`` otherwise). None, "auto" and
-    "raw" read raw CSR.
+    PyTorch versions. The route rule on the card, measured on an H100 at
+    B = 1, 8, 64 and 256: the single-term class takes the ``heap_topk``
+    kernel (``heap_kernel`` None or True), which beat the per-pop RMQ
+    route by ~80x in device time at every B; ``heap_kernel=False`` stays
+    only as the tests' way to reach that per-pop reference. Both classes
+    read raw postings unless ``postings_codec`` ("ef" or "bitpack") pins
+    the index's compressed ones, decoded in the packed kernels (or their
+    plain versions); the index must have been packed with that codec
+    (``ValueError`` otherwise). None, "auto" and "raw" read raw CSR, the
+    serving default: packed was no faster single-term and slower
+    multi-term. ``specialize_list_pad`` derives the multi-term probe depth
+    from the longest list each sub-batch probes instead of the longest list
+    in the index; the online runtime and the cluster build frontends with
+    False, so the set of dispatch callables stays closed. ``auditor`` (an
+    ``obs.JitAuditor``) wraps every callable the frontend mints, so its
+    first call is timed and one minted after ``auditor.freeze()`` is a
+    recorded violation.
     """
 
     def __init__(self, qidx: QACIndex, *, k: int = 10, tile: int = 128,
@@ -58,7 +66,7 @@ class QACFrontend:
                  trips: int | None = None, use_kernel: bool | None = None,
                  heap_kernel: bool | None = None,
                  specialize_list_pad: bool = True,
-                 postings_codec: str | None = None):
+                 postings_codec: str | None = None, auditor=None):
         self.qidx = qidx
         self.postings_codec = postings_codec
         self._explicit_packed = _resolve_packed(qidx.index, postings_codec) is not None
@@ -80,7 +88,17 @@ class QACFrontend:
         self._cache = {}
         self.stats = {"requests": 0, "single_queries": 0, "multi_queries": 0,
                       "single_fallbacks": 0}
+        self.auditor = auditor
         self._dispatch_log = None
+        self._fwd_host = None
+
+    def host_fwd_terms(self) -> np.ndarray:
+        """The forward index (docid -> term row) on the host, copied from
+        the device once per frontend; the online runtime's session filter
+        reads it."""
+        if self._fwd_host is None:
+            self._fwd_host = self.qidx.completions.fwd_terms.cpu().numpy()
+        return self._fwd_host
 
     def _multi_list_pad(self, pids, plen) -> int:
         """pow2 pad of the longest probe list THIS sub-batch can touch; it
@@ -143,6 +161,9 @@ class QACFrontend:
                     probe_iters=list_pad.bit_length(), **kw)
             else:
                 raise ValueError(engine)
+            if self.auditor is not None:
+                fn = self.auditor.wrap(
+                    key, fn, label=self.describe_route(engine, bucket, list_pad))
             self._cache[key] = fn
         return fn
 

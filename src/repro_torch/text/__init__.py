@@ -1,3 +1,5 @@
-from .synth import SynthLogConfig, generate_query_log
+from .synth import (KeystrokeTraceConfig, SynthLogConfig,
+                    generate_keystroke_trace, generate_query_log)
 
-__all__ = ["SynthLogConfig", "generate_query_log"]
+__all__ = ["KeystrokeTraceConfig", "SynthLogConfig", "generate_keystroke_trace",
+           "generate_query_log"]

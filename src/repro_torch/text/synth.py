@@ -1,10 +1,12 @@
-"""Synthetic scored query logs with AOL/MSN/EBAY-like statistics.
+"""Synthetic scored query logs with AOL/MSN/EBAY-like statistics, and
+keystroke traces over them.
 
-A verbatim copy of the JAX package's ``text/synth.py`` log generator
-(``SynthLogConfig``, ``generate_query_log``), so that one seed gives the
-same log in both packages. Zipf-distributed term reuse, ~3 terms/query,
-configurable unique-term count and term length; scores are Zipf
-frequencies.
+Verbatim copies of the JAX package's ``text/synth.py`` log generator
+(``SynthLogConfig``, ``generate_query_log``) and online traffic generator
+(``KeystrokeTraceConfig``, ``generate_keystroke_trace``), so that one seed
+gives the same log and the same trace in both packages. Zipf-distributed
+term reuse, ~3 terms/query, configurable unique-term count and term
+length; scores are Zipf frequencies.
 """
 from __future__ import annotations
 
@@ -55,3 +57,92 @@ def generate_query_log(cfg: SynthLogConfig = SynthLogConfig()):
     # frequency-style scores: Zipf over query popularity ranks
     scores = rng.zipf(1.2, size=cfg.n_queries).astype(np.float64)
     return queries, scores
+
+
+@dataclasses.dataclass
+class KeystrokeTraceConfig:
+    """Synthetic online QAC traffic: concurrent sessions typing queries
+    keystroke by keystroke (the AmazonQAC-documented shape of real traffic —
+    each request extends the previous prefix by one character, with
+    occasional backspace runs)."""
+
+    n_sessions: int = 64
+    queries_per_session: int = 1
+    mean_keystroke_ms: float = 150.0    # exponential inter-keystroke gap
+    session_spread_ms: float = 2000.0   # session start times ~ U[0, spread)
+    p_backspace: float = 0.06           # per-keystroke chance of a delete run
+    max_backspace: int = 3
+    popularity_zipf_s: float = 1.05     # target-query popularity skew
+    seed: int = 0
+    # open-loop offered load: when set, the whole trace's time
+    # axis is rescaled so the emitted request rate equals ``target_qps``
+    # regardless of how the generated trace was served — arrivals never
+    # wait for completions, the definition of an open-loop saturation
+    # sweep. Scaling time (rather than resampling sessions) keeps the
+    # REQUEST SET identical across offered loads, so a QPS sweep compares
+    # the same work at different arrival pressure; crank ``n_sessions``
+    # too when the workload should also be *wider* (more concurrent
+    # session caches), not just faster. Seeded-deterministic: the rescale
+    # is a pure function of the base trace.
+    target_qps: float | None = None
+
+
+def generate_keystroke_trace(queries: list[str],
+                             cfg: KeystrokeTraceConfig = KeystrokeTraceConfig()):
+    """-> list[(t_us float, session_id int, partial_query str)], time-sorted.
+
+    Each session draws Zipf-popular target queries from ``queries`` and
+    emits every prefix on its way to typing them (including prefixes ending
+    in a space — a complete term + empty suffix is a valid QAC request).
+    Backspace runs re-emit the shorter prefixes, the backtracking pattern a
+    prefix cache must survive. Inter-arrival gaps are exponential (Poisson
+    keystrokes per session); session starts are staggered so ~all sessions
+    overlap — the concurrent-session count IS ``n_sessions``.
+    """
+    rng = np.random.default_rng(cfg.seed)
+    pool = list(queries)
+    perm = rng.permutation(len(pool))
+    # bounded Zipf over popularity ranks (NOT rng.zipf, whose unbounded tail
+    # would clamp a majority of draws onto the single last rank)
+    probs = 1.0 / np.arange(1, len(pool) + 1) ** cfg.popularity_zipf_s
+    probs /= probs.sum()
+    # ``rng.choice(len(pool), p=probs)``'s own draw (one ``random()`` into
+    # the normalised cumulative sum), with the O(len(pool)) sum made once
+    # instead of once a draw: the same targets from the same stream
+    cdf = probs.cumsum()
+    if cdf.size:
+        cdf /= cdf[-1]
+    events = []
+    for s in range(cfg.n_sessions):
+        t = rng.uniform(0.0, cfg.session_spread_ms) * 1e3
+        for _ in range(cfg.queries_per_session):
+            if not pool:
+                raise ValueError("queries must not be empty")
+            target = pool[perm[int(cdf.searchsorted(rng.random(), side="right"))]]
+            n = 1
+            while n <= len(target):
+                t += rng.exponential(cfg.mean_keystroke_ms) * 1e3
+                events.append((t, s, target[:n]))
+                if (1 < n < len(target) and rng.random() < cfg.p_backspace):
+                    for _ in range(int(rng.integers(1, cfg.max_backspace + 1))):
+                        if n <= 1:
+                            break
+                        n -= 1
+                        t += rng.exponential(cfg.mean_keystroke_ms / 2) * 1e3
+                        events.append((t, s, target[:n]))
+                n += 1
+            t += rng.exponential(5 * cfg.mean_keystroke_ms) * 1e3  # dwell
+    events.sort(key=lambda e: (e[0], e[1]))
+    if cfg.target_qps is not None and len(events) > 1:
+        if cfg.target_qps <= 0:
+            raise ValueError(f"target_qps must be positive, "
+                             f"got {cfg.target_qps}")
+        t0, t1 = events[0][0], events[-1][0]
+        if t1 > t0:
+            # offered QPS of the base trace over its span; scale every
+            # timestamp (session starts, keystroke gaps, backspace runs,
+            # dwells alike) so the span carries target_qps requests/sec
+            base_qps = (len(events) - 1) / (t1 - t0) * 1e6
+            scale = base_qps / cfg.target_qps
+            events = [((t - t0) * scale, s, q) for t, s, q in events]
+    return events

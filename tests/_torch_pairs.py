@@ -121,3 +121,56 @@ def partials(kept, rng, B, pct_single=50, pct_garbage=0):
 def host(x):
     """numpy view of a JAX array, a tensor or a numpy array."""
     return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def complete_rows(fe, reqs, batch=256, pad=True):
+    """Each request's row of an uncached ``fe.complete`` at its own k (a
+    JAX or a port ``QACFrontend``): the requests grouped by k and by class,
+    each group in class-pure batches of ``batch``, with ``pad`` the last
+    padded by repeating its rows, so a JAX frontend compiles one bucket per
+    class and k. A lane's answer depends on its own inputs only, so this
+    equals one call per request."""
+    out = [None] * len(reqs)
+    groups = {}
+    for i, r in enumerate(reqs):
+        groups.setdefault((r.k, r.plen > 0), []).append(i)
+    for (k, _), idx in sorted(groups.items()):
+        for s in range(0, len(idx), batch):
+            part = idx[s:s + batch]
+            rs = [reqs[i] for i in (np.resize(np.asarray(part), batch) if pad else part)]
+            got = host(fe.complete(np.stack([r.pids for r in rs]),
+                                   np.asarray([r.plen for r in rs], np.int32),
+                                   np.stack([r.suf for r in rs]),
+                                   np.asarray([r.slen for r in rs], np.int32), k=k))
+            for j, i in enumerate(part):
+                out[i] = got[j, :k].copy()
+    return out
+
+
+class RowOracle:
+    """``complete_rows`` of one frontend with each (parsed key, k) computed
+    once across calls: the uncached answer a served row must equal.
+    ``batch`` 8, the frontend's smallest bucket, lets a JAX oracle share its
+    compiled callables with a JAX runtime on the same frontend."""
+
+    def __init__(self, fe, pad=True, batch=256):
+        self.fe, self.pad, self.batch = fe, pad, batch
+        self.rows = {}
+
+    def __call__(self, reqs):
+        todo = list({(r.key, r.k): r for r in reqs
+                     if (r.key, r.k) not in self.rows}.values())
+        for r, row in zip(todo, complete_rows(self.fe, todo, batch=self.batch,
+                                              pad=self.pad)):
+            self.rows[r.key, r.k] = row
+        return [self.rows[r.key, r.k] for r in reqs]
+
+
+def as_jax_requests(reqs):
+    """The port's ``QACRequest``s as the JAX package's, field for field
+    (``test_torch_runtime.py`` holds ``prepare_requests`` of the two
+    packages equal), so a JAX runtime or cluster replays the same trace
+    without compiling its own parse for every trace length."""
+    from repro.serve.runtime import QACRequest
+    return [QACRequest(**{f.name: getattr(r, f.name) for f in dataclasses.fields(r)})
+            for r in reqs]

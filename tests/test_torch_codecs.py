@@ -1,5 +1,5 @@
-"""The port's compressed postings format against the JAX package: the bit
-streams, ``pack_postings``'s four arrays (bit-identical, dtype included),
+"""The port's compressed postings format against the JAX package: the
+fixed-width bit fields, ``pack_postings``'s four arrays (bit-identical, dtype included),
 ``unpack_postings``'s round trip, and the plain ``packed_lookup`` and
 ``popcount32`` on every pointer (negative ones and ones past the end
 included), for both codecs over empty, single, block-edge, near-2**31 and
@@ -96,24 +96,19 @@ def test_popcount_equals_jax():
 
 @pytest.mark.parametrize("n_bits", [0, 1, 5, 13, 31, 32, 47, 63])
 def test_bit_streams_equal_jax(n_bits):
+    """Blocks of PACK_BLOCK fixed-width fields, packed by the port's
+    ``_pack_fields`` all at once, equal JAX's ``BitWriter`` stream written a
+    block at a time; ``_unpack_fields`` reads them back."""
     rng = np.random.default_rng(n_bits)
-    vals = rng.integers(0, (1 << n_bits) if n_bits else 1, size=257)
-    gaps = rng.integers(0, 9, size=40)
-    streams = []
-    for mod in (jc, tc):
-        bw = mod.BitWriter()
-        bw.write(5, 3)
-        bw.write_many(vals, n_bits)
-        bw.unary_many(gaps)
-        bw.unary(4)
-        bw.pad_to(bw.n_bits() + 11)
-        streams.append(bw.array())
-    assert np.array_equal(streams[0], streams[1])
-    r = tc.BitReader(streams[1])
-    assert r.read(3) == 5
-    assert np.array_equal(r.read_many(len(vals), n_bits), vals)
-    assert np.array_equal(r.unary_many(len(gaps)), gaps)
-    assert r.unary() == 4
+    vals = rng.integers(0, (1 << n_bits) if n_bits else 1, size=(3, tc.PACK_BLOCK))
+    bw = jc.BitWriter()
+    for row in vals:
+        bw.write_many(row, n_bits)
+    want = bw.array().view("<u4")[: 3 * 4 * n_bits]
+    got = tc._pack_fields(vals, n_bits)
+    assert got.dtype == np.uint32 and got.shape == (3, 4 * n_bits)
+    assert np.array_equal(got.reshape(-1), want)
+    assert np.array_equal(tc._unpack_fields(got, n_bits), vals)
 
 
 def test_pack_rejects_unknown_codec():

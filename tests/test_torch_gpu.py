@@ -611,3 +611,60 @@ def test_lm_smoke_width_kernel_route_matches_plain_route():
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
     assert torch.equal(routes[None][3], routes[False][3])
+
+
+def test_online_runtime_and_cluster_on_card(built):
+    """The runtime's measured replay and a 2-replica kill drill on the card:
+    every row equal to the plain route's on a CPU build of the same log, the
+    measured pass's heap_topk and conjunctive_topk launches what its
+    dispatch log predicts (none of rmq_query), and no callable minted after
+    the audit's freeze."""
+    from repro_torch.obs import JitAuditor
+    from repro_torch.runtime import FaultInjector, ReplicaFault
+    from repro_torch.serve import (ClusterConfig, QACOnlineRuntime, QACServingCluster,
+                                   RuntimeConfig, prepare_requests)
+    from repro_torch.text import KeystrokeTraceConfig, generate_keystroke_trace
+
+    qidx, kept = built
+    qs, sc = generate_query_log(SynthLogConfig(n_queries=3000, vocab_size=300,
+                                               mean_term_chars=4.0, seed=3))
+    plain = QACFrontend(build_qac_index(qs, sc, device="cpu")[0], k=10)
+    reqs = prepare_requests(qidx, generate_keystroke_trace(kept, KeystrokeTraceConfig(
+        n_sessions=24, mean_keystroke_ms=20.0, session_spread_ms=100.0, seed=5)), k=10)
+
+    def want(r, k):
+        return plain.complete(r.pids[None], np.asarray([r.plen], np.int32), r.suf[None],
+                              np.asarray([r.slen], np.int32), k=k)[0]
+
+    auditor = JitAuditor()
+    fe = QACFrontend(qidx, k=10, specialize_list_pad=False, auditor=auditor)
+    assert fe.describe_route("single") == "heap_topk[raw]"
+    rt = QACOnlineRuntime(fe, RuntimeConfig(max_batch=16, slack_us=2_000.0))
+    rt.warmup(reqs)
+    rt.run_trace(reqs)
+    rt.reset()
+    auditor.freeze()
+    counts = lambda: (heap_ops.launches, isect_ops.topk_launches, rmq_ops.launches,
+                      heap_ops.packed_launches, isect_ops.topk_packed_launches)
+    before, fallbacks = counts(), fe.stats["single_fallbacks"]
+    fe.begin_dispatch_log()
+    rows = rt.run_trace(reqs)
+    engines = [key[0] for key, _ in fe.end_dispatch_log()]
+    delta = tuple(a - b for a, b in zip(counts(), before))
+    assert engines.count("single_full") == fe.stats["single_fallbacks"] - fallbacks
+    assert delta == (engines.count("single") + engines.count("single_full"),
+                     engines.count("multi"), 0, 0, 0) and delta[0] and delta[1]
+    auditor.assert_closed()
+    for r, row in zip(reqs, rows):
+        np.testing.assert_array_equal(row, want(r, r.k))
+    shared = QACFrontend(qidx, k=10, specialize_list_pad=False)
+    t_kill = reqs[len(reqs) // 2].t_us
+    cl = QACServingCluster(qidx, ClusterConfig(
+        n_replicas=2, heartbeat_timeout_us=50_000.0, degrade_pressure_us=1e12,
+        shed_bulk_pressure_us=1e12, shed_pressure_us=1e12),
+        RuntimeConfig(max_batch=16, slack_us=2_000.0), frontends=[shared, shared],
+        injector=FaultInjector([], replica_faults=[ReplicaFault(0, t_kill)]))
+    res = cl.replay(reqs)
+    assert all(r.status == "ok" for r in res) and cl.telemetry.snapshot()["rerouted"] > 0
+    for r, got in zip(reqs, res):
+        np.testing.assert_array_equal(got.row, want(r, got.k_served))

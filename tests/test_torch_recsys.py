@@ -228,7 +228,8 @@ def test_configs_equal_jax(arch_id):
     """Every field of cfg and smoke_cfg but the torch-typed ones; the shapes,
     cells, feature specs and the analytic FLOPs and traffic."""
     port, ref = configs.get_arch(arch_id), jax_get_arch(arch_id)
-    assert configs.list_archs() == sorted(ARCHS + ["gemma2-2b", "qwen3-14b", "smollm-360m"])
+    assert configs.list_archs() == sorted(ARCHS + ["gemma2-2b", "qac-ebay", "qwen3-14b",
+                                                   "smollm-360m"])
     for c_t, c_j in ((port.cfg, ref.cfg), (port.smoke_cfg, ref.smoke_cfg)):
         f_t, f_j = dataclasses.asdict(c_t), dataclasses.asdict(c_j)
         for k in ("dtype", "use_kernel"):
