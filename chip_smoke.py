@@ -71,12 +71,14 @@ Phases, each printing its lines before the next starts:
      against a brute-force host search; each route's kernel launch counts on
      the main batch, counted from 0 just before its call and read just
      after: heap_topk (or rmq_query) and one conjunctive_topk launch per
-     multi-term dispatch; then one traced call of the kernel route and of the "ef" route
-     (``torch.profiler``, CUDA activity) for the device's busy share and the
-     kernels that take its time;
+     multi-term dispatch; ``qac_serve_step`` (the fused step, both classes on
+     their kernels) bit-identical to the kernel route; then one traced call
+     of the kernel route and of the "ef" route (``torch.profiler``, CUDA
+     activity) for the device's busy share and the kernels that take its
+     time;
   8. the online runtime and the serving cluster on that index: a keystroke
-     trace of 512 sessions typing 2 queries each (a keystroke per 150 ms a
-     session, ~36,000 requests over ~26 s) prepared at k=10; ``QACOnlineRuntime`` at
+     trace of 256 sessions typing 2 queries each (a keystroke per 150 ms a
+     session, ~18,000 requests over ~26 s) prepared at k=10; ``QACOnlineRuntime`` at
      ``QACArch().runtime_config()`` over ``QACArch().frontend`` (the
      arch's routes, ``specialize_list_pad=False``) with a ``JitAuditor``, in the
      measured-replay protocol (warm-up sweep, a full pass, reset, freeze,
@@ -91,16 +93,38 @@ Phases, each printing its lines before the next starts:
      rejections by reason, re-routed and degraded counts, the share served
      during the outage; every runtime row and every served cluster row
      bit-identical to the uncached frontend at its served k;
-  9. one JSON line naming every kernel with its launches, times and bound.
+  9. the live index (``GenerationalQAC``: a delta tier merged exactly over
+     each generation, rebuild-and-swap): (a) a parity drill at small depth,
+     a 20,000-query log, ``FreshnessConfig(k=10, delta_capacity=256,
+     swap_threshold=32)``, a mutation trace of 64 sessions x 1 query and
+     100 mutations: every answer equal to a from-scratch build of its
+     visible version on the card, at least 2 swaps, delta hits, one cache
+     invalidation per swap, traffic in the first and last generation, and
+     the same trace through the plain route giving equal answers; (b) the
+     live index over phase 5's log at ``QACArch().freshness_config()``
+     (capacity 4,096, threshold 1,024) and ``runtime_config()``, a mutation
+     trace over its completions with phase 8's keystroke shape and 1,200
+     mutations, one ``run_mutation_trace`` (no warm pass): exactly one
+     swap, per-request p50-p99.9 against phase 8's, apply p50 and p99, the
+     rebuild wall with its build, "ef" packing, frontend and warm-up parts,
+     the swap stall with its drain, absorb, view and install parts, delta
+     hits, escalations, truncated-scan fallbacks, traffic per generation,
+     the host view's build time, heap_topk and conjunctive_topk launches
+     equal to what the dispatch logs of every generation predict (no
+     rmq_query), and 256 answers of each generation (every delta hit among
+     them, up to that count) equal to ``witness_answers``;
+ 10. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import pstats
@@ -108,6 +132,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -126,19 +151,22 @@ PACKED_PLAIN_TILES = 16            # the packed plain top-k's cap in phase 6 (~0
 KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
               #          kernel it replaces, the counted runs that launch
               #          it: frontend routes' main batches, the recsys and
-              #          LM phases, the online runtime's measured pass)
+              #          LM phases, the online runtime's measured pass, the
+              #          live index's run at scale)
     "rmq_query": ("repro_torch.kernels.rmq.ops", "launches",
                   "src/repro_torch/csrc/rmq.cu",
                   "src/repro/kernels/rmq/kernel.py:68", ("per_pop_rmq",)),
     "heap_topk": ("repro_torch.kernels.heap_topk.ops", "launches",
                   "src/repro_torch/csrc/heap_topk.cu",
-                  "src/repro/kernels/heap_topk/kernel.py:186", ("kernels", "online")),
+                  "src/repro/kernels/heap_topk/kernel.py:186",
+                  ("kernels", "online", "fresh")),
     "conjunctive_scan": ("repro_torch.kernels.intersect.ops", "launches",
                          "src/repro_torch/csrc/intersect.cu",
                          "src/repro/kernels/intersect/kernel.py:137", ()),
     "conjunctive_topk": ("repro_torch.kernels.intersect.ops", "topk_launches",
                          "src/repro_torch/csrc/intersect.cu",
-                         "src/repro/kernels/intersect/kernel.py:137", ("kernels", "online")),
+                         "src/repro/kernels/intersect/kernel.py:137",
+                         ("kernels", "online", "fresh")),
     "heap_topk_packed": ("repro_torch.kernels.heap_topk.ops", "packed_launches",
                          "src/repro_torch/csrc/heap_topk.cu",
                          "src/repro/kernels/heap_topk/kernel.py:72", CODECS),
@@ -1091,12 +1119,15 @@ def uncached_rows(fe, reqs, pairs):
     return want
 
 
-def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts) -> dict:
+ONLINE_SESSIONS = 256    # phase 8's trace; 512 took the script past 1,000 s of its 1,200
+
+
+def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts):
     """The online runtime and the serving cluster over the full-width index:
-    a keystroke trace of 512 sessions, the runtime's measured replay with
+    a keystroke trace of ONLINE_SESSIONS sessions, the runtime's measured replay with
     the callable audit, a 4-replica cluster's kill drill, every row held to
     the uncached frontend. Returns the kernel counts of the runtime's
-    measured pass."""
+    measured pass and its latency percentiles in ms."""
     from repro_torch.configs import get_arch
     from repro_torch.obs import JitAuditor, ObsConfig, fmt, percentiles
     from repro_torch.runtime import FaultInjector, ReplicaFault
@@ -1106,7 +1137,7 @@ def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts) -> dic
 
     arch = get_arch("qac-ebay")
     t0 = time.perf_counter()
-    tcfg = KeystrokeTraceConfig(n_sessions=512, queries_per_session=2,
+    tcfg = KeystrokeTraceConfig(n_sessions=ONLINE_SESSIONS, queries_per_session=2,
                                 mean_keystroke_ms=150, seed=seed)
     reqs = prepare_requests(qidx, generate_keystroke_trace(kept, tcfg), k=10)
     span_s = (reqs[-1].t_us - reqs[0].t_us) / 1e6
@@ -1219,6 +1250,290 @@ def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts) -> dic
     say(f"[online] {len(rows)} runtime rows and {len(served)} served cluster rows "
         f"bit-identical to the uncached frontend ({len(pairs)} distinct (query, k) "
         f"in {time.perf_counter() - t0:.1f} s)")
+    return counts, ms
+
+
+# --------------------------------------------------------------------------
+# phase 9: the live index
+# --------------------------------------------------------------------------
+FRESH_SAMPLE = 256       # answers of each generation held against the witness
+
+
+def mutation_trace(kept, scores, sessions, queries_per_session, keystroke_ms,
+                   n_mutations, seed):
+    from repro_torch.text import (KeystrokeTraceConfig, MutationTraceConfig,
+                                  generate_mutation_trace)
+    return generate_mutation_trace(kept, scores, MutationTraceConfig(
+        keystrokes=KeystrokeTraceConfig(
+            n_sessions=sessions, queries_per_session=queries_per_session,
+            mean_keystroke_ms=keystroke_ms, seed=seed),
+        n_mutations=n_mutations, follower_sessions=8, seed=seed))
+
+
+def check_fresh_launches(phase, counts, log):
+    """The run launched heap_topk once per single-term dispatch (with the
+    full-budget fallbacks) and conjunctive_topk once per multi-term
+    dispatch of every generation's frontend, and nothing else."""
+    engines = [key[0] for key, _ in log]
+    want = {"heap_topk": engines.count("single") + engines.count("single_full"),
+            "conjunctive_topk": engines.count("multi")}
+    for name, c in counts.items():
+        if c != want.get(name, 0):
+            fail(f"{phase}: launched {name} {c} times; the dispatch logs predict "
+                 f"{want.get(name, 0)} ({counts})")
+    return engines
+
+
+def fresh_gates(phase, gq, results, min_swaps):
+    """The snapshot gates of the JAX package's freshness tests."""
+    s = gq.snapshot()
+    inv = s["runtime"]["invalidations"]
+    per_gen = s["runtime"]["per_generation"]
+    if s["n_swaps"] < min_swaps:
+        fail(f"{phase}: {s['n_swaps']} swaps, wanted at least {min_swaps}")
+    if not s["delta_hit_answers"]:
+        fail(f"{phase}: no answer was served from the delta")
+    if len(inv) != s["n_swaps"] or any(v["count"] != 1 for v in inv.values()):
+        fail(f"{phase}: invalidations {inv} for {s['n_swaps']} swaps")
+    if 0 not in per_gen or s["generation"] not in per_gen:
+        fail(f"{phase}: traffic by generation {sorted(per_gen)}, last {s['generation']}")
+    if len(results) != s["runtime"]["n_requests"]:
+        fail(f"{phase}: {len(results)} answers for {s['runtime']['n_requests']} requests")
+    return s
+
+
+@contextlib.contextmanager
+def fixed_service_clock(step_s: float):
+    """The runtime's wall clock, read afresh, ``step_s`` after its previous
+    reading: every dispatch and cache hit costs the same on every route, so
+    two routes batch, cache and absorb a trace alike."""
+    import repro_torch.serve.runtime as runtime_mod
+
+    real, tick = runtime_mod.time, itertools.count()
+    runtime_mod.time = types.SimpleNamespace(perf_counter=lambda: next(tick) * step_s)
+    try:
+        yield
+    finally:
+        runtime_mod.time = real
+
+
+FRESH_FIELDS = ("idx", "strings", "scores", "gen", "seq", "n_delta", "escalations")
+
+
+def route_diffs(rk, rp) -> str:
+    """'' when two routes' answers agree on every FRESH_FIELDS field, else
+    how many differ, by field, and the first one's differing fields."""
+    if len(rk) != len(rp):
+        return f"{len(rk)} answers on the kernel route, {len(rp)} on the plain route"
+    diffs = [(a, b, [f for f in FRESH_FIELDS if getattr(a, f) != getattr(b, f)])
+             for a, b in zip(rk, rp)]
+    diffs = [d for d in diffs if d[2]]
+    if not diffs:
+        return ""
+    a, b, fs = diffs[0]
+    by_field = {f: sum(f in d[2] for d in diffs) for f in FRESH_FIELDS}
+    first = "; ".join(f"{f} kernels {getattr(a, f)!r} plain {getattr(b, f)!r}" for f in fs)
+    return (f"{len(diffs)} of {len(rk)} answers differ, by field {by_field}; the first, "
+            f"answer {a.idx} ({a.query!r}): {first}")
+
+
+def fresh_drill(torch, seed, smi, reset_counts, read_counts, clock_step_s=2.0 ** -9):
+    """(a) Every answer of a small live index on the card against a
+    from-scratch build of its own visible version, across >= 2 swaps; the
+    same trace through the plain route gives equal answers. Which request a
+    mutation's absorb finds answered follows the runtime's measured service
+    times, so both routes run on a fixed service clock (``clock_step_s`` a
+    reading). With ``clock_step_s=None`` (``--probe``) both run on the real
+    clock: the answers that differ are counted by field, not failed, and
+    every answer of each route is held against a build of its own version."""
+    from repro_torch.serve import FreshnessConfig, GenerationalQAC, RuntimeConfig
+    from repro_torch.text import SynthLogConfig, generate_query_log
+
+    t0 = time.perf_counter()
+    qs, sc = generate_query_log(SynthLogConfig(n_queries=20_000, seed=seed))
+    events = mutation_trace(qs, sc, 64, 1, 2.0, 100, seed)
+    n_req = sum(e.kind == "request" for e in events)
+    say(f"[fresh] drill: a 20,000-query log ({SynthLogConfig.vocab_size} terms), "
+        f"{n_req} requests and {len(events) - n_req} mutations, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(cfg=FreshnessConfig(k=10, delta_capacity=256, swap_threshold=32),
+              rt_cfg=RuntimeConfig(max_batch=8, slack_us=2_000.0), device=DEVICE)
+    runs = {}
+    for route, fe_kw in (("kernels", {}), ("plain", {"use_kernel": False})):
+        gq = GenerationalQAC(qs, sc, frontend_kwargs=fe_kw, **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        gq.begin_dispatch_log()
+        t0 = time.perf_counter()
+        with (fixed_service_clock(clock_step_s) if clock_step_s
+              else contextlib.nullcontext()):
+            res = gq.run_mutation_trace(events)
+        t_run = time.perf_counter() - t0
+        counts, log = read_counts(), gq.end_dispatch_log()
+        if route == "kernels":
+            check_fresh_launches("fresh drill", counts, log)
+        elif any(counts.values()):
+            fail(f"fresh drill: the plain route launched {counts}")
+        runs[route] = (gq, res)
+        s = fresh_gates(f"fresh drill, {route}", gq, res, 2)
+        say(f"[fresh] drill {route} route: {len(res)} answers in {t_run:.1f} s, "
+            f"{s['n_swaps']} swaps, outcomes {s['mutation_outcomes']}, "
+            f"{s['delta_hit_answers']} delta-hit answers, {s['escalations']} "
+            f"escalations, {s['truncated_scans']} truncated scans; launches {counts}")
+    (gk, rk), (gp, rp) = runs["kernels"], runs["plain"]
+    diff = route_diffs(rk, rp)
+    if clock_step_s and diff:
+        fail(f"fresh drill: the kernel route's answers differ from the plain route's: {diff}")
+    if not clock_step_s:
+        say(f"[fresh] drill on the real clock: {diff or 'the routes agree on every field'}")
+        t0 = time.perf_counter()
+        checked = gp.check_parity(rp)
+        say(f"[fresh] drill on the real clock: the plain route's {checked} answers equal "
+            f"a from-scratch build of their version ({len(gp._oracle_cache)} builds in "
+            f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    checked = gk.check_parity(rk)
+    say(f"[fresh] drill: {checked} answers equal a from-scratch build of their "
+        f"version on the card ({len(gk._oracle_cache)} builds in "
+        f"{time.perf_counter() - t0:.1f} s) on {smi}" + ("" if diff else
+        "; the plain route's answers equal the kernel route's (strings, scores, gen, "
+        "seq, n_delta, escalations)"))
+
+
+def view_paths(torch, queries, scores, smi):
+    """``MainCorpusView``'s two ways to the same maps, at the log's scale
+    (``--probe``): over the builder's ``kept``, strictly ascending (scores
+    scattered by lexicographic position, ``docid_of_string`` a binary
+    search), and over ``kept`` reversed (the JAX package's two dicts). Both
+    built on one index, their maps held equal, ``lookup`` timed on strings
+    the index holds and strings it lacks."""
+    from repro_torch.core import build_qac_index
+    from repro_torch.core.delta import MainCorpusView
+
+    t0 = time.perf_counter()
+    qidx, kept, sc = build_qac_index(queries, scores, k_default=10, postings_codec=None,
+                                     device=DEVICE)
+    fwd = qidx.completions.fwd_terms.cpu().numpy()
+    say(f"[probe] index of {len(kept)} completions built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    views, build_s = {}, {}
+    for path, (kk, ss) in (("sorted", (kept, sc)),
+                           ("dicts", (kept[::-1], np.asarray(sc)[::-1]))):
+        t0 = time.perf_counter()
+        views[path] = MainCorpusView(qidx, kk, ss, fwd=fwd)
+        build_s[path] = time.perf_counter() - t0
+    vs, vd = views["sorted"], views["dicts"]
+    if isinstance(vs.docid_of_string, dict) or not isinstance(vd.docid_of_string, dict):
+        fail("probe: the views did not take the sorted and the dict paths")
+    if (vs.string_of_docid != vd.string_of_docid
+            or not np.array_equal(vs.score_of_docid, vd.score_of_docid)):
+        fail("probe: the two views' maps differ")
+    rng = np.random.default_rng(0)
+    held = [kept[i] for i in rng.integers(0, len(kept), 200_000).tolist()]
+    probe = held + [q + " zzzz" for q in held]
+    looked, lookup_us = {}, {}
+    for path, v in views.items():
+        t0 = time.perf_counter()
+        looked[path] = [v.lookup(q) for q in probe]
+        lookup_us[path] = (time.perf_counter() - t0) / len(probe) * 1e6
+    if looked["sorted"] != looked["dicts"]:
+        fail("probe: the two views' lookups differ")
+    say(f"[probe] MainCorpusView over {len(kept)} completions: sorted path "
+        f"{build_s['sorted']:.2f} s, dict path {build_s['dicts']:.2f} s to build; "
+        f"lookup {lookup_us['sorted']:.3f} and {lookup_us['dicts']:.3f} us each over "
+        f"{len(probe)} strings (half held); maps and lookups equal; on {smi}")
+
+
+def fresh_sample(results):
+    """Up to FRESH_SAMPLE answers of each generation: its delta hits first,
+    then answers spread evenly over the rest."""
+    by_gen = {}
+    for r in results:
+        by_gen.setdefault(r.gen, []).append(r)
+    out = []
+    for rs in by_gen.values():
+        hits = [r for r in rs if r.n_delta > 0][:FRESH_SAMPLE]
+        rest = [r for r in rs if r.n_delta == 0]
+        n = min(FRESH_SAMPLE - len(hits), len(rest))
+        out += hits + [rest[int(i)] for i in np.linspace(0, len(rest) - 1, n)]
+    return out
+
+
+def live_index_phase(torch, queries, scores, kept, sc_kept, seed, smi, online_ms,
+                     reset_counts, read_counts) -> dict:
+    """(b) The live index at qac-ebay scale: one run of a mutation trace
+    with phase 8's keystroke shape through ``GenerationalQAC`` over phase
+    5's log, exactly one swap. Returns the run's kernel counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.obs import percentiles
+    from repro_torch.serve import GenerationalQAC, witness_answers
+
+    arch = get_arch("qac-ebay")
+    t0 = time.perf_counter()
+    events = mutation_trace(kept, sc_kept, 512, 2, 150.0, 1200, seed)
+    n_req = sum(e.kind == "request" for e in events)
+    span_s = (events[-1].t_us - events[0].t_us) / 1e6
+    say(f"[fresh] trace over the {len(kept)} completions: {n_req} requests and "
+        f"{len(events) - n_req} mutations over {span_s:.2f} s, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gq = GenerationalQAC(queries, scores, cfg=arch.freshness_config(),
+                         rt_cfg=arch.runtime_config(), device=DEVICE)
+    torch.cuda.synchronize()
+    say(f"[fresh] GenerationalQAC({arch.freshness_config()}, {arch.runtime_config()}) "
+        f"over the {len(queries)}-query log: {time.perf_counter() - t0:.1f} s, of it "
+        f"the host view {gq.history[0].view_us / 1e6:.2f} s")
+    reset_counts()
+    torch.cuda.synchronize()
+    gq.begin_dispatch_log()
+    t0 = time.perf_counter()
+    res = gq.run_mutation_trace(events)
+    t_run = time.perf_counter() - t0
+    counts, log = read_counts(), gq.end_dispatch_log()
+    engines = check_fresh_launches("fresh", counts, log)
+    s = fresh_gates("fresh", gq, res, 1)
+    if s["n_swaps"] != 1:
+        fail(f"fresh: {s['n_swaps']} swaps at this scale, wanted exactly 1")
+    lat = percentiles([r.lat_us for r in res], (50, 95, 99, 99.9), suffix="",
+                      mean=True, vmax=True)
+    ms = {k: v / 1e3 for k, v in lat.items()}
+    say(f"[fresh] run: {len(res)} answers in {t_run:.1f} s; mutations "
+        f"{s['mutation_outcomes']}; per-request latency ms: p50 {ms['p50']:.3f} p95 "
+        f"{ms['p95']:.3f} p99 {ms['p99']:.3f} p99.9 {ms['p99.9']:.3f} mean "
+        f"{ms['mean']:.3f} max {ms['max']:.3f}; phase 8's runtime on the same index: "
+        f"p50 {online_ms['p50']:.3f} p95 {online_ms['p95']:.3f} p99 "
+        f"{online_ms['p99']:.3f} p99.9 {online_ms['p99.9']:.3f} on {smi}")
+    say(f"[fresh] apply p50 {s['apply_p50_us']:.1f} us p99 {s['apply_p99_us']:.1f} us; "
+        f"{s['delta_hit_answers']} delta-hit answers, {s['escalations']} escalations "
+        f"(one B=1 dispatch each), {s['truncated_scans']} truncated-scan fallbacks "
+        f"({s['truncated_scan_us'] / 1e3 / max(s['truncated_scans'], 1):.3f} ms each, "
+        f"{s['truncated_scan_us'] / 1e6:.2f} s in all); "
+        f"paths {s['runtime']['paths']}; traffic by generation "
+        f"{s['runtime']['per_generation']}; invalidations {s['runtime']['invalidations']}")
+    sw = gq.swap_log[0]
+    us = lambda key: sw[key] / 1e6
+    say(f"[fresh] swap to generation {sw['gen']} at {sw['t_us'] / 1e6:.3f} s of the trace "
+        f"({sw['folded']} entries, seq {sw['folded_seq']}, {sw['deferred']} deferred): "
+        f"rebuild wall {us('rebuild_wall_us'):.2f} s = build {us('build_us'):.2f} s (of it "
+        f"the \"ef\" packing {us('pack_us'):.2f} s) + frontend {us('frontend_us'):.3f} s + "
+        f"warm-up {us('warm_us'):.3f} s; swap stall {us('swap_stall_us'):.3f} s = drain "
+        f"{us('drain_us'):.4f} + absorb {us('absorb_us'):.4f} + view {us('view_us'):.3f} + "
+        f"install {us('install_us'):.4f} s")
+    say(f"[fresh] launches in the run {counts}: heap_topk = {engines.count('single')} "
+        f"single-term dispatches + {engines.count('single_full')} full-budget "
+        f"fallbacks, conjunctive_topk = {engines.count('multi')} multi-term dispatches "
+        f"over both generations (the warm-up sweep and escalations included), as the "
+        f"dispatch logs predict")
+    t0 = time.perf_counter()
+    sample = fresh_sample(res)
+    for r, want in zip(sample, witness_answers(gq, sample)):
+        if r.strings != want:
+            fail(f"fresh: answer {r.idx} ({r.query!r}, gen {r.gen}, seq {r.seq}) "
+                 f"{r.strings[:3]}... != witness {want[:3]}...")
+    hits = sum(r.n_delta > 0 for r in sample)
+    say(f"[fresh] {len(sample)} answers ({hits} of the {s['delta_hit_answers']} delta "
+        f"hits) equal the witness, {FRESH_SAMPLE} a generation at most, in "
+        f"{time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -1229,6 +1544,10 @@ def main() -> int:
     ap.add_argument("--vocab", type=int, default=1_000_000)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--probe", action="store_true",
+                    help="only the live index's probes after the build: the drill on "
+                         "the real clock, and MainCorpusView's two paths at the log's "
+                         "scale; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -1251,7 +1570,7 @@ def main() -> int:
                                                    conjunctive_topk_packed_ref,
                                                    conjunctive_topk_ref)
     from repro_torch.kernels.rmq.ref import rmq_window_batch
-    from repro_torch.serve import QACFrontend
+    from repro_torch.serve import QACFrontend, qac_serve_step
 
     ops = {name: importlib.import_module(v[0]) for name, v in KERNELS.items()}
 
@@ -1301,6 +1620,14 @@ def main() -> int:
                     fail(f"ptxas spills in {demangle(entry)}: {line.strip()}")
 
     lap(2)
+
+    if args.probe:
+        fresh_drill(torch, args.seed, smi, reset_counts, read_counts, clock_step_s=None)
+        lap("probe drill")
+        queries, scores = make_log(args.queries, args.vocab, args.seed)
+        view_paths(torch, queries, scores, smi)
+        lap("probe view")
+        return 0
 
     results = {}     # each kernel's cases held against its plain version
 
@@ -1357,7 +1684,6 @@ def main() -> int:
                                           postings_codec="ef", device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    del queries, scores
     idx, comps, rm = qidx.index, qidx.completions, qidx.rmq_minimal
     # the build's ranking step again, on its own rows (the completions in
     # lexicographic order) and scores: rank_rows, and its lexsort alone
@@ -1371,7 +1697,7 @@ def main() -> int:
     t_lexsort = time.perf_counter() - t0
     if not np.array_equal(d_of_row, docids_h):
         fail("rank_rows over the index's own rows gives other docids")
-    del docids_h, rows_h, d_of_row, sc_kept
+    del docids_h, rows_h, d_of_row
     # where the host build's time goes: cProfile of a 300,000-query build
     prof = cProfile.Profile()
     t0 = time.perf_counter()
@@ -1710,6 +2036,14 @@ def main() -> int:
                      f"{multi_dispatches[route]} multi-term dispatches")
     say(f"[path] multi-term dispatches on the main batch {multi_dispatches}: one "
         "conjunctive_topk launch each on every kernel route")
+    t0 = time.perf_counter()
+    fused = qac_serve_step(qidx, pids, plen, suf, slen, k=10)
+    torch.cuda.synchronize()
+    if not np.array_equal(fused.cpu().numpy(), answers["kernels"]):
+        fail("qac_serve_step on the kernels differs from the kernel route's frontend")
+    say(f"[path] qac_serve_step (heap_topk and one conjunctive_topk over the whole "
+        f"batch) bit-identical to the kernel route on {args.batch} queries, "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
     a, a_k = answers["kernels"], per_k["kernels"]
     if a.shape != (args.batch, 10) or a.dtype != np.int32 or a_k.shape != (64, int(kmix.max())):
         fail(f"unexpected answer shapes {a.shape} {a.dtype} {a_k.shape}")
@@ -1763,11 +2097,18 @@ def main() -> int:
     lap(7)
 
     # ---- 8. the online runtime and the cluster ------------------------------
-    counted["online"] = online_phase(torch, qidx, kept, args.seed, smi, reset_counts,
-                                     read_counts)
+    counted["online"], online_ms = online_phase(torch, qidx, kept, args.seed, smi,
+                                                reset_counts, read_counts)
     lap(8)
 
-    # ---- 9. kernels line ----------------------------------------------------
+    # ---- 9. the live index --------------------------------------------------
+    fresh_drill(torch, args.seed, smi, reset_counts, read_counts)
+    counted["fresh"] = live_index_phase(torch, queries, scores, kept, sc_kept, args.seed,
+                                        smi, online_ms, reset_counts, read_counts)
+    del queries, scores
+    lap(9)
+
+    # ---- 10. kernels line ---------------------------------------------------
     launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
     say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []

@@ -4,9 +4,9 @@ Index sizing mirrors Table 2 EBAY x a production-year growth factor: 10M
 completions, 1M unique terms, ~3.1 postings/completion. The JAX package's
 ``QACArch`` also lowers a docid-striped index onto a TPU mesh
 (``index_specs``, ``lowerable``); those parts wait for the port's
-distribution work, and its freshness knobs wait for the live index. What
-the serving stack reads is here: the widths, ``k``, the engine routes
-(``frontend``), and the online runtime's and cluster's knobs.
+distribution work. What the serving stack reads is here: the widths,
+``k``, the engine routes (``frontend``), and the online runtime's,
+cluster's and live index's knobs.
 """
 from __future__ import annotations
 
@@ -55,6 +55,13 @@ class QACArch:
     cluster_shed_pressure_us: float = 100_000.0
     cluster_degraded_k: int = 4
     cluster_heartbeat_timeout_us: float = 200_000.0
+    # freshness tier (serve/freshness.py): the in-memory delta absorbing
+    # live inserts between rebuilds. swap_threshold counts visible delta
+    # changes before a rebuild-and-swap; capacity bounds the delta so it
+    # can never overflow between swaps (threshold <= capacity is enforced
+    # by FreshnessConfig.__post_init__).
+    freshness_delta_capacity: int = 4096
+    freshness_swap_threshold: int = 1024
 
     family = "qac"
 
@@ -95,4 +102,16 @@ class QACArch:
             shed_pressure_us=self.cluster_shed_pressure_us,
             degraded_k=self.cluster_degraded_k,
             heartbeat_timeout_us=self.cluster_heartbeat_timeout_us,
+        )
+
+    def freshness_config(self):
+        """The arch's delta-tier/swap knobs as a ``FreshnessConfig``
+        (validated there: k >= 1, capacity >= k, threshold in
+        [1, capacity])."""
+        from ..serve.freshness import FreshnessConfig
+
+        return FreshnessConfig(
+            k=self.k,
+            delta_capacity=self.freshness_delta_capacity,
+            swap_threshold=self.freshness_swap_threshold,
         )

@@ -97,14 +97,15 @@ def build_qac_index(queries: Sequence[str], scores: Sequence[float],
                     max_terms: int = MAX_TERMS,
                     max_term_chars: int = MAX_TERM_CHARS,
                     postings_codec: str | None = "ef",
-                    device=None):
+                    device=None, timings: dict | None = None):
     """Full pipeline: scored log -> (QACIndex, kept strings, scores).
 
     ``device`` defaults to the card (see ``backend.resolve_device``).
     ``postings_codec`` ("ef" default, "bitpack", or None) also emits the
     compressed postings layout beside raw CSR (``InvertedIndex.build``);
     the engines decode it only when the caller names a codec
-    (``core.search``).
+    (``core.search``). ``timings``, when given, receives ``pack_us``, the
+    part of the build that packs the postings (``InvertedIndex.build``).
     """
     if postings_codec is not None and postings_codec not in CODECS:
         raise ValueError(f"unknown postings_codec {postings_codec!r}")
@@ -114,7 +115,7 @@ def build_qac_index(queries: Sequence[str], scores: Sequence[float],
     d_of_row, lex = rank_rows(rows, sc)
     comps = Completions.build(rows, d_of_row, lex, device=device)
     inv = InvertedIndex.build(rows, d_of_row, dictionary.n_terms,
-                              postings_codec, device=device)
+                              postings_codec, device=device, timings=timings)
     qidx = QACIndex(
         dictionary=dictionary,
         completions=comps,

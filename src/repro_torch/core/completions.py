@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .searching import ranged_searchsorted
+
 
 @dataclasses.dataclass(frozen=True)
 class Completions:
@@ -38,6 +40,28 @@ class Completions:
         t = lambda a: torch.from_numpy(a).to(device)
         return Completions(cols=t(cols), docids=t(docids), fwd_terms=t(fwd),
                            n_terms_per=t(nterms), n=n, max_terms=m)
+
+    def locate_prefix(self, prefix_ids, prefix_len, term_lo, term_hi):
+        """Lexicographic range [p, q) of completions prefixed by
+        prefix_ids[:prefix_len] followed by any term id in [term_lo,
+        term_hi): one query, one range-restricted binary search per trie
+        level. Returns int32 scalars; empty -> p == q; a prefix as long as
+        a row -> (0, 0)."""
+        dev = self.cols.device
+        as32 = lambda x: torch.as_tensor(x, device=dev).to(torch.int32)
+        plen = int(prefix_len)
+        lo, hi = as32(0), as32(self.n)
+        for j in range(min(plen, self.max_terms)):        # trie descent
+            t = as32(prefix_ids[j])
+            lo, hi = (ranged_searchsorted(self.cols[j], t, lo, hi, side="left"),
+                      ranged_searchsorted(self.cols[j], t, lo, hi, side="right"))
+        # final level: any term in [term_lo, term_hi)
+        col = self.cols[min(plen, self.max_terms - 1)]
+        p = ranged_searchsorted(col, as32(term_lo), lo, hi, side="left")
+        q = ranged_searchsorted(col, as32(term_hi), lo, hi, side="left")
+        if plen >= self.max_terms:
+            return as32(0), as32(0)
+        return p, q
 
     def extract(self, docid: torch.Tensor):
         """docid[...] -> (term_ids int32[..., M], n_terms[...]).

@@ -11,6 +11,7 @@ shortest prefix list) from them on every route.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -32,11 +33,13 @@ class InvertedIndex:
     @staticmethod
     def build(term_rows: np.ndarray, docid_of_row: np.ndarray, n_terms: int,
               postings_codec: str | None = "ef", *,
-              device: torch.device) -> "InvertedIndex":
+              device: torch.device,
+              timings: dict | None = None) -> "InvertedIndex":
         """term_rows int32[N, M] (1-based ids, 0 pad); docid_of_row int32[N].
 
         ``postings_codec``: "ef" (default) or "bitpack" also packs the
-        lists into ``.packed``; None skips it.
+        lists into ``.packed``; None skips it. ``timings``, when given,
+        receives ``pack_us``: the packing and its round-trip check.
         """
         term_rows = np.asarray(term_rows, dtype=np.int64)
         n, m = term_rows.shape
@@ -63,10 +66,13 @@ class InvertedIndex:
         minimal[:-1][nonempty] = d[starts[nonempty]]
         packed = None
         if postings_codec is not None:
+            t0 = time.perf_counter()
             packed = pack_postings(d.astype(np.int32), postings_codec,
                                    device=device)
             got = unpack_postings(packed)
             assert (got == d).all(), "packed postings round-trip broke"
+            if timings is not None:
+                timings["pack_us"] = (time.perf_counter() - t0) * 1e6
         to = lambda a: torch.from_numpy(a).to(device)
         return InvertedIndex(postings=to(d.astype(np.int32)), offsets=to(offsets),
                              minimal=to(minimal), n_terms=n_terms,

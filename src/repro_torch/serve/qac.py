@@ -1,21 +1,80 @@
-"""QAC serving entry points for class-pure batches (used by serve/frontend.py).
+"""QAC serving entry points: the class-pure batches serve/frontend.py
+dispatches, the fused mixed-batch step, and the per-query ``*_vmap``
+references.
 
 Each runs on the device of the index it is given. ``use_kernel=None``
 resolves to the CUDA kernels on the card and the plain PyTorch versions on
 the CPU (``backend.default_use_kernel``). ``postings_codec`` ("ef" or
 "bitpack") sends the engines through the index's compressed postings
-(``core.search``); None reads raw CSR.
+(``core.search``); None reads raw CSR. The ``*_vmap`` forms loop the
+per-query engines over the batch's rows (JAX's ``vmap`` of them; a
+data-dependent loop does not map in torch): references for the tests, on
+no serving path.
 """
 from __future__ import annotations
 
 from ..backend import default_use_kernel
 from ..core.builder import QACIndex
-from ..core.search import (conjunctive_multi_batch, single_term_topk_batch,
+import torch
+
+from ..core.search import (complete_conjunctive, complete_conjunctive_batch,
+                           conjunctive_multi, conjunctive_multi_batch,
+                           single_term_topk_batch, single_term_topk_bounded,
                            single_term_topk_bounded_batch)
 
 
 def _use_kernel(qidx: QACIndex, use_kernel: bool | None) -> bool:
     return default_use_kernel(qidx.device) if use_kernel is None else use_kernel
+
+
+def qac_serve_step(qidx: QACIndex, prefix_ids, prefix_len, suffix_chars,
+                   suffix_len, *, k: int = 10, tile: int = 128,
+                   max_tiles: int = 4096, use_kernel: bool | None = None,
+                   heap_kernel: bool | None = None,
+                   postings_codec: str | None = None):
+    """Fused batched serve of a mixed batch -> docids int32[B, k] (INF
+    padded): ``complete_conjunctive_batch``, each class's engine over the
+    whole batch when the class is present. The reference the routed
+    ``QACFrontend`` equals element for element."""
+    term_lo, term_hi = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
+    return complete_conjunctive_batch(
+        qidx.index, qidx.completions, qidx.rmq_minimal, prefix_ids,
+        prefix_len, term_lo, term_hi, k, tile=tile, max_tiles=max_tiles,
+        use_kernel=_use_kernel(qidx, use_kernel), heap_kernel=heap_kernel,
+        postings_codec=postings_codec)
+
+
+def qac_serve_step_vmap(qidx: QACIndex, prefix_ids, prefix_len, suffix_chars,
+                        suffix_len, *, k: int = 10, tile: int = 128,
+                        max_tiles: int = 4096):
+    """The per-query fused serve looped over the batch: the reference."""
+    tl, th = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
+    return torch.stack([complete_conjunctive(
+        qidx.index, qidx.completions, qidx.rmq_minimal, prefix_ids[b],
+        prefix_len[b], tl[b], th[b], k, tile=tile, max_tiles=max_tiles)
+        for b in range(tl.shape[0])])
+
+
+def serve_single_term_vmap(qidx: QACIndex, suffix_chars, suffix_len, *,
+                           k: int = 10, trips: int | None = None):
+    """The per-query single-term engine looped over the batch -> (docids
+    int32[B, k], done bool[B]): the reference."""
+    trips = (k + 2) if trips is None else trips
+    tl, th = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
+    rows = [single_term_topk_bounded(qidx.index, qidx.rmq_minimal, tl[b],
+                                     th[b], k, trips) for b in range(tl.shape[0])]
+    return (torch.stack([o for o, _ in rows]), torch.stack([d for _, d in rows]))
+
+
+def serve_multi_term_vmap(qidx: QACIndex, prefix_ids, prefix_len,
+                          suffix_chars, suffix_len, *, k: int = 10,
+                          tile: int = 128, max_tiles: int = 4096):
+    """The per-query conjunctive engine looped over the batch: the
+    reference."""
+    tl, th = qidx.dictionary.locate_prefix(suffix_chars, suffix_len)
+    return torch.stack([conjunctive_multi(
+        qidx.index, qidx.completions, prefix_ids[b], prefix_len[b], tl[b],
+        th[b], k, tile=tile, max_tiles=max_tiles) for b in range(tl.shape[0])])
 
 
 def serve_single_term(qidx: QACIndex, suffix_chars, suffix_len, *, k: int = 10,

@@ -7,14 +7,13 @@ trace whose time moves between arrivals, to JAX's cluster with the one
 change the port makes: the replica advanced to the arrival first), and
 the construction-time validation."""
 import dataclasses
-import itertools
-import types
 
 import numpy as np
 import pytest
 
 import repro.serve.runtime as jax_runtime_mod
 import repro_torch.serve.runtime as runtime_mod
+from _torch_clock import fix_clocks
 from repro.core import build_qac_index as jax_build
 from repro.serve import QACFrontend as JaxFrontend
 from repro.serve.cluster import (ClusterConfig as JaxClusterConfig,
@@ -91,16 +90,6 @@ class _TickingJaxCluster(JaxCluster):
     def _admit(self, rep, r, sla, *, now, orig_t, rerouted):
         rep.runtime.tick(now)
         super()._admit(rep, r, sla, now=now, orig_t=orig_t, rerouted=rerouted)
-
-
-def _fixed_service(monkeypatch, step_s):
-    """Both runtimes' wall clocks, read afresh: each reading ``step_s``
-    (a power of two, so every difference is exact) after the one before,
-    so a dispatch or a cache hit costs ``step_s`` in either package."""
-    for mod in (runtime_mod, jax_runtime_mod):
-        tick = itertools.count()
-        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
-            perf_counter=lambda tick=tick: next(tick) * step_s))
 
 
 class _R:
@@ -235,7 +224,7 @@ def test_admission_ladder_over_time_equals_ticking_jax(built, monkeypatch, n_rep
                               frontends=[built["jfe"]] * n_replicas), built["jreqs"]),
                           (lambda: _jax_cluster(built, JaxClusterConfig(**cfg)),
                            built["jreqs"])):
-        _fixed_service(monkeypatch, step)
+        fix_clocks(monkeypatch, runtime_mod, jax_runtime_mod, step_s=step)
         cl = make()
         res = cl.run_trace(reqs_of, sla)
         runs.append((res, cl.telemetry.snapshot()))

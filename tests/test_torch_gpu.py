@@ -668,3 +668,94 @@ def test_online_runtime_and_cluster_on_card(built):
     assert all(r.status == "ok" for r in res) and cl.telemetry.snapshot()["rerouted"] > 0
     for r, got in zip(reqs, res):
         np.testing.assert_array_equal(got.row, want(r, got.k_served))
+
+
+def _fresh_trace(qs, sc, seed, n_mut=12, sessions=10):
+    from repro_torch.text import (KeystrokeTraceConfig, MutationTraceConfig,
+                                  generate_mutation_trace)
+    return generate_mutation_trace(qs, sc, MutationTraceConfig(
+        keystrokes=KeystrokeTraceConfig(n_sessions=sessions, queries_per_session=1,
+                                        mean_keystroke_ms=2.0, seed=seed),
+        n_mutations=n_mut, follower_sessions=6, seed=seed))
+
+
+def test_live_index_on_card_equals_plain_route(monkeypatch):
+    """A GenerationalQAC trace across swaps on the card: every FreshResult
+    (strings, scores, version, delta count, escalations) equal to the plain
+    route's on the card, every answer equal to the from-scratch oracle, and
+    the kernel route's launches what its dispatch log predicts. Which
+    requests a mutation finds answered follows the runtime's service times,
+    so the runtime's clock reads 2**-9 s more each time on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch.serve.runtime as runtime_mod
+    from _torch_clock import fix_clocks
+    from repro_torch.serve import FreshnessConfig, GenerationalQAC, RuntimeConfig
+
+    qs, sc = generate_query_log(SynthLogConfig(n_queries=3000, vocab_size=300,
+                                               mean_term_chars=4.0, seed=3))
+    events = _fresh_trace(qs, sc, seed=1)
+    kw = dict(cfg=FreshnessConfig(k=10, delta_capacity=64, swap_threshold=4),
+              rt_cfg=RuntimeConfig(max_batch=8, slack_us=2_000.0), device="cuda")
+    runs = {}
+    for route, fe_kw in (("kernels", {}), ("plain", {"use_kernel": False})):
+        fix_clocks(monkeypatch, runtime_mod)
+        gq = GenerationalQAC(qs, sc, frontend_kwargs=fe_kw, **kw)
+        before = (heap_ops.launches, isect_ops.topk_launches, rmq_ops.launches)
+        gq.begin_dispatch_log()
+        runs[route] = (gq, gq.run_mutation_trace(events))
+        engines = [key[0] for key, _ in gq.end_dispatch_log()]
+        delta = tuple(a - b for a, b in zip(
+            (heap_ops.launches, isect_ops.topk_launches, rmq_ops.launches), before))
+        if route == "kernels":
+            assert delta == (engines.count("single") + engines.count("single_full"),
+                             engines.count("multi"), 0) and delta[0] and delta[1]
+        else:
+            assert delta == (0, 0, 0)
+    (gk, rk), (_, rp) = runs["kernels"], runs["plain"]
+    fields = lambda r: (r.idx, r.strings, r.scores, r.gen, r.seq, r.n_delta, r.escalations)
+    assert [fields(r) for r in rk] == [fields(r) for r in rp]
+    assert gk.snapshot()["n_swaps"] >= 2 and gk.snapshot()["delta_hit_answers"] > 0
+    assert gk.check_parity(rk) == len(rk)
+
+
+def test_freshness_witness_equals_the_oracle_on_card():
+    """``witness_answers`` (the at-scale check of chip_smoke.py's phase 9)
+    against the from-scratch oracle on a small index on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serve import (FreshnessConfig, GenerationalQAC, RuntimeConfig,
+                                   witness_answers)
+
+    qs, sc = generate_query_log(SynthLogConfig(n_queries=2000, vocab_size=200,
+                                               mean_term_chars=4.0, seed=6))
+    gq = GenerationalQAC(qs, sc, cfg=FreshnessConfig(k=10, delta_capacity=64,
+                                                     swap_threshold=5),
+                         rt_cfg=RuntimeConfig(max_batch=8, slack_us=2_000.0),
+                         device="cuda", frontend_kwargs=dict(tile=4, max_tiles=2))
+    results = gq.run_mutation_trace(_fresh_trace(qs, sc, seed=4, n_mut=14))
+    assert gq.snapshot()["truncated_scans"] > 0
+    assert witness_answers(gq, results) == [
+        gq.oracle_answer(r.query, r.gen, r.seq, r.k) for r in results]
+
+
+def test_qac_serve_step_on_kernels_equals_plain_route(built):
+    """The fused step through heap_topk and one conjunctive_topk launch
+    equals its plain route and the routed frontend, on a mixed batch and on
+    each class alone."""
+    from repro_torch.serve import qac_serve_step
+
+    qidx, kept = built
+    raw = _partials(kept, np.random.default_rng(12), 200, pct_single=40)
+    pids, plen, _, suf, slen = parse_queries(qidx.dictionary, raw)
+    fe = QACFrontend(qidx, k=10)
+    for sel in (slice(None), plen == 0, plen > 0):
+        args = (pids[sel], plen[sel], suf[sel], slen[sel])
+        before = (heap_ops.launches, isect_ops.topk_launches)
+        got = qac_serve_step(qidx, *args, k=10)
+        torch.cuda.synchronize()
+        launched = (heap_ops.launches - before[0], isect_ops.topk_launches - before[1])
+        assert launched == (int(bool((args[1] == 0).any())), int(bool((args[1] > 0).any())))
+        plain = qac_serve_step(qidx, *args, k=10, use_kernel=False)
+        assert torch.equal(got, plain)
+        assert np.array_equal(fe.complete(*args), got.cpu().numpy())

@@ -1,11 +1,15 @@
 """The port's RMQ (plain version and wrapper) against the JAX package:
-``val`` bit-identical everywhere, ``pos`` wherever ``val < INF``."""
+``val`` bit-identical everywhere, ``pos`` wherever ``val < INF``; the
+per-query ``RangeMin.query`` (``pos`` too) and the top-k over a range,
+``topk_in_range`` and ``topk_in_range_batch``, bit-identical."""
 import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.core import rmq as jrmq
 from repro.core.rmq import RangeMin as JaxRangeMin
+from repro_torch.core import rmq as trmq
 from repro.kernels.rmq.ref import rmq_window_batch as jax_window
 from repro_torch.core.rmq import RangeMin
 from repro_torch.kernels.rmq import ops as rmq_ops
@@ -61,3 +65,36 @@ def test_window_batch_and_query_batch_equal_jax(n):
                                 tq.clamp(0, n - 1), n=n)
     assert np.array_equal(val.numpy(), np.asarray(wv))
     assert np.array_equal(pos.numpy(), np.asarray(wp))
+
+
+def _structures(n, seed):
+    rng = np.random.default_rng(seed)
+    values = rng.integers(0, max(2, n // 3), n).astype(np.int32)  # many ties
+    values[rng.integers(0, n, max(1, n // 10))] = INF
+    return JaxRangeMin.build(values), RangeMin.build(values, device="cpu"), rng
+
+
+@pytest.mark.parametrize("n", [1, 129, 5000])
+def test_per_query_form_equals_jax(n):
+    jr, tr, rng = _structures(n, n + 1)
+    p, q = _ranges(n, rng, B=160)
+    wp, wv = jax.jit(jax.vmap(jr.query))(p, q)
+    got = [tuple(int(x) for x in tr.query(a, b)) for a, b in zip(p, q)]
+    assert got == list(zip(np.asarray(wp).tolist(), np.asarray(wv).tolist()))
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_topk_in_range_equals_jax(k):
+    n = 700
+    jr, tr, rng = _structures(n, k)
+    p, q = _ranges(n, rng, B=24)
+    q = np.where(np.arange(q.size) % 4 == 0, q, q + 1)  # half-open ranges
+    wv, wp = jax.jit(jax.vmap(lambda a, b: jrmq.topk_in_range(jr, a, b, k)))(p, q)
+    got = [trmq.topk_in_range(tr, a, b, k) for a, b in zip(p, q)]
+    assert np.array_equal(np.stack([v.numpy() for v, _ in got]), np.asarray(wv))
+    assert np.array_equal(np.stack([x.numpy() for _, x in got]), np.asarray(wp))
+    assert (np.asarray(wv) < INF).any()
+    bv, bp = jrmq.topk_in_range_batch(jr, p, q, k)
+    tv, tp_ = trmq.topk_in_range_batch(tr, torch.from_numpy(p), torch.from_numpy(q), k)
+    assert np.array_equal(tv.numpy(), np.asarray(bv))
+    assert np.array_equal(tp_.numpy(), np.asarray(bp))
