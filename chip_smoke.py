@@ -7,17 +7,23 @@ Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
   2. the build of every CUDA kernel from ``src/repro_torch/csrc``, one
      ``nvcc`` per source, all at once, with the ``ptxas -v`` report
-     (registers, spills) of every flash_attention, heap_topk and intersect
-     instantiation (a spill in a bf16 flash_attention one fails);
+     (registers, spills) of every flash_attention, heap_topk, intersect and
+     fm_pairwise instantiation (a spill in a bf16 flash_attention one fails);
   3. the recsys path at the full widths of the repo's configs: each model at
      smoke width on the card against the CPU; FM (39 fields x 1M rows x 10)
-     at B = 512, 262,144 and 1,048,576 through the fm_pairwise kernel and the
-     plain route (logits within rtol 1e-5, atol 1e-6; one launch per kernel
-     forward, none on the plain one), its median ms per batch, one traced
-     forward, and the kernel held against its plain version at each shape
-     (and in bf16 at 262,144); DIN and BST at B=512 and MIND's retrieval of
-     one user against 1,048,576 items (k=100), finite and launching no
-     kernel; peak device memory per model;
+     at B = 512, 262,144 and 1,048,576 through its kernel route (one
+     fm_forward launch a forward: ids in, logits out), the gather +
+     fm_pairwise composition and the plain route (logits within rtol 1e-5,
+     atol 1e-6; no launch on the plain one), the median ms per batch of
+     each, one traced forward of the first two (device ops, busy time) and
+     the bytes each allocates; fm_forward held against its plain version at
+     each shape, on bf16 copies of the weights at 262,144 and on uniform ids
+     at 1,048,576, with a control (the plain version a field short) that
+     the check must reject, and its bound from the distinct rows the ids
+     touch; fm_pairwise held against its own at each shape (and in bf16 at
+     262,144); DIN and BST at B=512 and MIND's retrieval of one user against
+     1,048,576 items (k=100), finite and launching no kernel; peak device
+     memory per model;
   4. LM serving, gemma2-2b at its full width (26 layers, d_model 2304,
      vocab 256,000) with random weights from the port's generator and tokens
      from ``TokenStream.synthetic``: the flash_attention kernel against its
@@ -180,11 +186,17 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
                                 "src/repro/kernels/intersect/kernel.py:110", CODECS),
     "fm_pairwise": ("repro_torch.kernels.fm_pairwise.ops", "launches",
                     "src/repro_torch/csrc/fm_pairwise.cu",
-                    "src/repro/kernels/fm_pairwise/kernel.py:27", ("recsys",)),
+                    "src/repro/kernels/fm_pairwise/kernel.py:27", ()),
+    "fm_forward": ("repro_torch.kernels.fm_pairwise.ops", "forward_launches",
+                   "src/repro_torch/csrc/fm_pairwise.cu",
+                   "src/repro/kernels/fm_pairwise/kernel.py:27", ("recsys",)),
     "flash_attention": ("repro_torch.kernels.flash_attention.ops", "launches",
                         "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:93", ("lm",)),
 }
+# what a kernel replaces beside its TPU kernel: fm_forward also takes the
+# gathers of FMModel.forward around fm_pairwise
+ALSO_REPLACES = {"fm_forward": "src/repro/models/recsys.py:109-111"}
 # the kernels each frontend route's main-batch run launches, and no others
 # (the per-tile conjunctive_scan kernels are held in phase 6, off the path)
 ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_topk"),
@@ -193,7 +205,7 @@ ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_topk"),
                  "plain": (),
                  "ef": ("heap_topk_packed", "conjunctive_topk_packed"),
                  "bitpack": ("heap_topk_packed", "conjunctive_topk_packed"),
-                 "recsys": ("fm_pairwise",),
+                 "recsys": ("fm_forward",),
                  "lm": ("flash_attention",)}
 # the __global__ each wrapper launches, as the profiler names it
 TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
@@ -211,6 +223,7 @@ TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               ("conjunctive_topk_packed", "bitpack"):
                   "conjunctive_topk_kernel<qac::PackedLookup<false>",
               "fm_pairwise": "fm_pairwise_kernel<",   # <float> or <__nv_bfloat16>
+              "fm_forward": "fm_forward_kernel<",     # <T, kVec>
               # flash_attention_kernel<D> (fp32) or flash_attention_tc_kernel<D, decode,
               # softcap> (bf16: prefill, or split-KV decode with its merge in the launch)
               "flash_attention": "flash_attention_"}
@@ -610,8 +623,10 @@ def fm_host_logits(torch, model, ids) -> np.ndarray:
 
 
 def recsys_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
-    """FM at its three inference shapes through the kernel and the plain
-    route, the kernel held against its plain version there (and in bf16),
+    """FM at its three inference shapes through the kernel route (one
+    fm_forward launch), the gather + fm_pairwise composition and the plain
+    route; fm_forward held against its plain version there (and on bf16
+    copies of the weights, and on uniform ids), fm_pairwise against its own;
     DIN and BST at serve_p99, MIND's retrieval of one user against 1M items;
     every model also at smoke width on the card against the CPU. Returns the
     launch counts summed over the counted runs."""
@@ -619,19 +634,21 @@ def recsys_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict
     from repro_torch.configs.recsys_common import MODEL_CLS, RECSYS_SHAPES
     from repro_torch.data import recsys_batch
     from repro_torch.kernels.fm_pairwise import ops as fm_ops
-    from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_ref
+    from repro_torch.kernels.fm_pairwise.ref import fm_forward_ref, fm_pairwise_ref
     from repro_torch.models.recsys import clamp_rows
 
     total = {}
-    counted_run = counter(torch, reset_counts, read_counts, "fm_pairwise", "recsys", total)
+    counted_run = counter(torch, reset_counts, read_counts, "fm_forward", "recsys", total)
 
     def on_card(feats_np):
         return {k: torch.from_numpy(v).to(dev) for k, v in feats_np.items()}
 
+    seen = [0]    # the peak before peak_bytes resets it
+
     def memory(model):
         n = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-        return (f"{n / 2**30:.3f} GiB of weights, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
-                f"GiB allocated")
+        peak = max(seen[0], torch.cuda.max_memory_allocated())
+        return f"{n / 2**30:.3f} GiB of weights, peak {peak / 2**30:.3f} GiB allocated"
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -657,33 +674,114 @@ def recsys_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict
     torch.cuda.reset_peak_memory_stats()
     model = MODEL_CLS["fm"](cfg, device=dev, seed=seed)
     n_f, V, D = model.tables.shape
+    fields = torch.arange(n_f, device=dev)
+
+    def composed(ids):
+        """FM's kernel route before fm_forward: torch gathers write an int64
+        index and the [B, F, D] embeddings, the fm_pairwise kernel reads them."""
+        flat = clamp_rows(ids, V) + fields * V
+        emb = model.tables.view(n_f * V, D)[flat]
+        lin = model.linear.view(n_f * V)[flat].sum(-1)
+        return model.bias + lin + fm_ops.fm_pairwise(emb)
+
+    def peak_bytes(fn):
+        """Device bytes allocated above what was live before one call."""
+        torch.cuda.synchronize()
+        seen[0] = max(seen[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    def hold_forward(case, ids, tables, linear, bias):
+        """fm_forward against fm_forward_ref within FM_TOL, plus in bf16 one
+        unit in the last place for each of the two bf16 roundings (the
+        linear sum, then bias + lin: 2**-6 * (|lin| + |bias|)), which the two
+        may take to neighbouring values as their fp32 sums run in other
+        orders; the plain version with the last field dropped must fail the
+        same check. The bound's bytes: the ids, each distinct (field, row)
+        of tables and linear once, and 4 B a row out."""
+        B, elt = ids.shape[0], tables.element_size()
+        flat = clamp_rows(ids, V) + fields * V
+        distinct = int(torch.unique(flat).numel())
+        extra = 0.0
+        if tables.dtype == torch.bfloat16:
+            lin = linear.view(n_f * V)[flat].double().sum(-1)
+            extra = 2.0**-6 * (lin.abs() + bias.double().abs())
+        del flat
+
+        def close(g, w):
+            w = w.double()
+            return bool(((g.double() - w).abs()
+                         <= FM_TOL["rtol"] * w.abs() + FM_TOL["atol"] + extra).all())
+
+        dropped = fm_forward_ref(ids[:, :-1].contiguous(), tables[:-1], linear[:-1], bias)
+        if close(fm_ops.fm_forward(ids, tables, linear, bias), dropped):
+            fail(f"fm_forward {case}: the check passes the plain version with a field dropped")
+        del dropped
+        gathered = B * n_f * (D + 1) * elt
+        c = hold("fm_forward", lambda: fm_ops.fm_forward(ids, tables, linear, bias),
+                 lambda: fm_forward_ref(ids, tables, linear, bias), close,
+                 B * n_f * 4 + distinct * (D + 1) * elt + 4 * B, 200, case,
+                 ops_needed=B * (n_f * (3 * D + 1) + 3 * D + 3))
+        c.update(distinct_rows=distinct, gathered_bytes=gathered)
+        say(f"[kernel] fm_forward {case}: device {c['ms']*1e3:.2f} us/launch, call "
+            f"{c['call_ms']*1e3:.2f} us, plain {c['plain_ms']*1e3:.2f} us, bound "
+            f"{c['bound_ms']*1e3:.4f} us ({c['bound_by']}, {c['bytes']} B, {distinct} distinct "
+            f"(field, row) of {B * n_f}), every gathered row {gathered} B "
+            f"({gathered / HBM_BYTES_PER_S * 1e6:.2f} us), max |kernel - plain| "
+            f"{c['max_abs_err']:.3g}, the dropped-field control rejected, on {smi}")
+
     fm_batches = [(name, RECSYS_SHAPES[name]["batch"]) for name in ("serve_p99", "serve_bulk")]
     fm_batches.append(("retrieval_cand", RECSYS_SHAPES["retrieval_cand"]["n_cand"]))
     for shape, B in fm_batches:
         t0 = time.perf_counter()
         feats = on_card(recsys_batch(cfg, B, np.random.default_rng(seed))[0])
         t_data = time.perf_counter() - t0
+        ids = feats["sparse_ids"]
         with torch.inference_mode():
             model.use_kernel = True
             logits = counted_run(lambda: model(feats), 1)
             model.use_kernel = False
             plain = counted_run(lambda: model(feats), 0)
+            comp = composed(ids)
             if logits.shape != (B,) or not bool(torch.isfinite(logits).all()):
                 fail(f"fm {shape}: logits of shape {tuple(logits.shape)}, finite "
                      f"{bool(torch.isfinite(logits).all())}")
-            if not torch.allclose(logits, plain, **FM_TOL):
-                fail(f"fm {shape}: kernel and plain logits differ by "
-                     f"{float((logits - plain).abs().max())}")
+            for name, other in (("kernel", logits), ("composition", comp)):
+                if not torch.allclose(other, plain, **FM_TOL):
+                    fail(f"fm {shape}: {name} and plain logits differ by "
+                         f"{float((other - plain).abs().max())}")
             if shape == "serve_p99":
-                want = fm_host_logits(torch, model, feats["sparse_ids"][:64])
+                want = fm_host_logits(torch, model, ids[:64])
                 if not np.allclose(logits[:64].cpu().numpy(), want, **FM_TOL):
                     fail("fm: logits differ from the explicit pair sum in float64")
             t_plain = median_ms(torch, lambda: model(feats), 20)
+            t_comp = median_ms(torch, lambda: composed(ids), 20)
             model.use_kernel = True
             t_kernel = median_ms(torch, lambda: model(feats), 20)
             events = device_times(traced(torch, lambda: model(feats), 1,
-                                         TRACE_TAGS["fm_pairwise"], 1)[0])
-            flat = clamp_rows(feats["sparse_ids"], V) + torch.arange(n_f, device=dev) * V
+                                         TRACE_TAGS["fm_forward"], 1)[0])
+            comp_events = device_times(traced(torch, lambda: composed(ids), 1,
+                                              TRACE_TAGS["fm_pairwise"], 1)[0])
+            mem = {"fused": peak_bytes(lambda: model(feats)),
+                   "composition": peak_bytes(lambda: composed(ids))}
+            hold_forward(f"{shape} B={B} F={n_f} D={D} fp32", ids, model.tables,
+                         model.linear, model.bias)
+            if shape == "serve_bulk":
+                half = [t.to(torch.bfloat16) for t in (model.tables, model.linear, model.bias)]
+                hold_forward(f"{shape} B={B} F={n_f} D={D} bf16", ids, *half)
+                del half
+            if shape == "retrieval_cand":
+                g = torch.Generator(device=dev).manual_seed(seed)
+                uniform = torch.randint(0, V, (B, n_f), generator=g, device=dev,
+                                        dtype=torch.int32)
+                hold_forward(f"{shape} B={B} F={n_f} D={D} fp32 uniform ids", uniform,
+                             model.tables, model.linear, model.bias)
+                del uniform
+            # the TPU kernel's own contract, off the model's path
+            flat = clamp_rows(ids, V) + fields * V
             emb = model.tables.view(n_f * V, D)[flat]
             cases = [(emb, "fp32")] + ([(emb.to(torch.bfloat16), "bf16")]
                                        if shape == "serve_bulk" else [])
@@ -698,17 +796,22 @@ def recsys_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict
                     f"bound {c['bound_ms']*1e3:.4f} us ({c['bound_by']}, {c['bytes']} B), "
                     f"max |kernel - plain| {c['max_abs_err']:.3g} on {smi}")
             del flat, emb, cases
-        busy = sum(d for d, _, _ in events)
-        say(f"[recsys] fm {shape} B={B}: kernel route {t_kernel:.4f} ms/batch "
-            f"({t_kernel / B * 1e3:.5f} us/row), plain route {t_plain:.4f} ms/batch "
-            f"({t_plain / B * 1e3:.5f} us/row), median of 20 | logits equal within "
-            f"{FM_TOL}, max |diff| {float((logits - plain).abs().max()):.3g} | batch "
-            f"made in {t_data:.2f} s on the host | one traced forward: device busy "
-            f"{busy / 1e3:.4f} ms on {smi}")
-        for d, key, count in events[:6]:
-            say(f"[recsys]   {d / 1e3:9.4f} ms  {count:4d} x  {key[:90]}")
-        del feats, logits, plain
+        say(f"[recsys] fm {shape} B={B}: fused route (one fm_forward) {t_kernel:.4f} ms/batch "
+            f"({t_kernel / B * 1e3:.5f} us/row), gather + fm_pairwise composition "
+            f"{t_comp:.4f} ms, plain route {t_plain:.4f} ms, median of 20 each | logits "
+            f"equal within {FM_TOL}, max |kernel - plain| "
+            f"{float((logits - plain).abs().max()):.3g}, |composition - plain| "
+            f"{float((comp - plain).abs().max()):.3g} | batch made in {t_data:.2f} s on "
+            f"the host | peak bytes above the weights: fused {mem['fused']}, composition "
+            f"{mem['composition']} on {smi}")
+        for what, evs in (("fused", events), ("composition", comp_events)):
+            say(f"[recsys]   traced {what} forward: {sum(n for _, _, n in evs)} device ops, "
+                f"busy {sum(d for d, _, _ in evs) / 1e3:.4f} ms")
+            for d, key, count in evs[:6]:
+                say(f"[recsys]   {d / 1e3:9.4f} ms  {count:4d} x  {key[:90]}")
+        del feats, ids, logits, plain, comp
     say(f"[recsys] fm: {memory(model)}")
+    seen[0] = 0
     del model
     torch.cuda.empty_cache()
 
@@ -743,7 +846,7 @@ def recsys_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict
                 fail(f"recsys {kind} {what}: unexpected output")
             t = median_ms(torch, run, 20)
         say(f"[recsys] {kind} {what}: {t:.4f} ms per batch (median of 20), finite, on "
-            f"{model.device}, no fm_pairwise launch | {memory(model)} on {smi}")
+            f"{model.device}, no FM kernel launch | {memory(model)} on {smi}")
         del model, feats
         torch.cuda.empty_cache()
     say(f"[recsys] phase took {time.perf_counter() - t_phase:.1f} s; launches on the "
@@ -1611,7 +1714,7 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry function" in line:   # the ptxas -v report, per instantiation
                 entry = line.split("'")[1]
-                if name in ("flash_attention", "heap_topk", "intersect"):
+                if name in ("flash_attention", "heap_topk", "intersect", "fm_pairwise"):
                     say(f"[build] {name}: {demangle(entry)}")
             elif "Used" in line or "spill" in line or any(
                     w in line for w in ("C7508", "C7512", "C7520")):   # setmaxnreg, wgmma serialised
@@ -2115,6 +2218,8 @@ def main() -> int:
     for name, (_, _, src, replaces, routes) in KERNELS.items():
         first = results[name][0]      # the headline: its first case, which names it
         line.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES
+                        else {}),
                      "launches": launches[name],
                      "launches_by_route": {r: counted[r][name] for r in routes},
                      **first, "max_abs_err": max(c["max_abs_err"] for c in results[name]),

@@ -1,24 +1,40 @@
-"""``fm_pairwise``: the FM second-order term, as a CUDA kernel on the card.
+"""FM's CUDA kernels on the card: ``fm_pairwise`` and ``fm_forward``.
 
-On CUDA tensors it launches ``csrc/fm_pairwise.cu`` (one warp per row,
-fp32 or bf16 input, fp32 accumulation); on CPU tensors it runs the plain
-version ``ref.fm_pairwise_ref``. Same contract either way: emb [B, F, D]
--> float32[B]. ``launches`` counts kernel launches only.
+On CUDA tensors each wrapper launches its kernel in ``csrc/fm_pairwise.cu``
+or raises ``ValueError``; on CPU tensors it runs its plain version in
+``ref.py``. Same contract either way.
+
+* ``fm_pairwise(emb)``: the TPU kernel's contract, emb [B, F, D] ->
+  float32[B] (one warp per row). ``launches`` counts its launches.
+* ``fm_forward(ids, tables, linear, bias)``: FM's whole forward from the
+  ids in one launch (clamp, both gathers, the pairwise term, the bias),
+  with no index or [B, F, D] tensor in device memory; its launch shape is
+  :func:`plan_fm_forward`. ``forward_launches`` counts its launches.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 
 import torch
 
 from ... import backend
-from .ref import fm_pairwise_ref
+from .ref import fm_forward_ref, fm_pairwise_ref
 
 launches = 0
+forward_launches = 0
 
 MAX_F, MAX_D = 64, 128
+# csrc/fm_pairwise.cu's kThreads, kEltsPerLane: threads a block, fp32
+# accumulators (s and sq each) a lane holds
+THREADS, ELTS_PER_LANE = 128, 16
+FILL_THREADS = 132 * 1024     # split the fields over lanes until B rows give this many
 _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
+_FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] \
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def fm_pairwise(emb: torch.Tensor) -> torch.Tensor:
@@ -45,4 +61,84 @@ def fm_pairwise(emb: torch.Tensor) -> torch.Tensor:
              B, F, D, backend.stream(emb.device))
     backend.check("fm_pairwise", err)
     launches += 1
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    vec: int          # bytes a table load brings
+    lanes_d: int      # lanes splitting a row's d
+    lanes_f: int      # lanes splitting its fields
+    rows: int         # rows a block
+    blocks: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=256)   # a plan costs ~6 us of host time a call
+def plan_fm_forward(B: int, F: int, D: int, elt: int, align: int,
+                    elts_per_lane: int = ELTS_PER_LANE) -> ForwardPlan:
+    """The launch shape of ``fm_forward_kernel`` for B rows of F fields of D
+    elements of ``elt`` bytes, from a table whose address is a multiple of
+    ``align``: the widest load (16, 8, 4 or 2 bytes, at least an element)
+    that divides a row and the address; the fewest lanes_d (a power of two)
+    whose loads hold a row in ``elts_per_lane`` accumulators a lane (the
+    kernel's kEltsPerLane, or at least one load's elements); then lanes_f
+    doubled, up to a warp's group and F, while the rows give fewer than
+    FILL_THREADS threads."""
+    row_bytes = D * elt
+    vec = max(v for v in (16, 8, 4, 2)
+              if v >= elt and row_bytes % v == 0 and align % v == 0)
+    per = vec // elt
+    loads = max(1, elts_per_lane // per)
+    lanes_d = 1
+    while -(-(row_bytes // vec) // lanes_d) > loads:
+        lanes_d *= 2
+    lanes_f = 1
+    while lanes_d * lanes_f < 32 and lanes_f < F and B * lanes_d * lanes_f < FILL_THREADS:
+        lanes_f *= 2
+    rows = THREADS // (lanes_d * lanes_f)
+    return ForwardPlan(vec, lanes_d, lanes_f, rows, -(-B // rows), rows * F * 4)
+
+
+def fm_forward(ids: torch.Tensor, tables: torch.Tensor, linear: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """FM's forward, ``bias + sum_f linear[f, id] + pair(tables[f, id])``:
+    ids int32 [B, F], tables float32 or bfloat16 [F, V, D], linear [F, V, 1]
+    and bias [] (or [1]) of the tables' dtype, all contiguous on one card,
+    1 <= F <= 64 and 1 <= D <= 128 -> float32[B]. A negative id wraps once,
+    then every id clamps to [0, V-1] (numpy-style indexing)."""
+    global forward_launches
+    if not any(t.is_cuda for t in (ids, tables, linear, bias)):
+        return fm_forward_ref(ids, tables, linear, bias)
+    backend.require_cuda_int32("fm_forward", ids=ids)
+    backend.require_cuda_float("fm_forward", tables=tables, linear=linear, bias=bias)
+    if ids.device != tables.device:
+        raise ValueError(f"fm_forward: ids on {ids.device}, tables on {tables.device}")
+    if any(t.requires_grad for t in (tables, linear, bias)) and torch.is_grad_enabled():
+        raise ValueError("fm_forward: the kernel has no backward; call it under "
+                         "torch.inference_mode() or torch.no_grad()")
+    if ids.dim() != 2 or tables.dim() != 3:
+        raise ValueError(f"fm_forward: needs ids [B, F] and tables [F, V, D], got "
+                         f"{tuple(ids.shape)} and {tuple(tables.shape)}")
+    F, V, D = tables.shape
+    if not (1 <= F <= MAX_F and 1 <= D <= MAX_D and V >= 1):
+        raise ValueError(f"fm_forward: needs 1 <= F <= {MAX_F}, 1 <= D <= {MAX_D} and "
+                         f"V >= 1, got F={F}, V={V}, D={D}")
+    if ids.shape[1] != F or linear.shape != (F, V, 1) or bias.numel() != 1 \
+            or bias.dim() > 1 or linear.dtype != tables.dtype or bias.dtype != tables.dtype:
+        raise ValueError(f"fm_forward: ids {tuple(ids.shape)}, linear "
+                         f"{tuple(linear.shape)} {linear.dtype} and bias "
+                         f"{tuple(bias.shape)} {bias.dtype} do not fit tables "
+                         f"{tuple(tables.shape)} {tables.dtype}")
+    B = ids.shape[0]
+    out = torch.empty(B, dtype=torch.float32, device=tables.device)
+    if B == 0:
+        return out
+    plan = plan_fm_forward(B, F, D, tables.element_size(), math.gcd(tables.data_ptr(), 16))
+    fn = backend.load("fm_pairwise", "fm_forward_launch", _FORWARD_ARGS)
+    err = fn(backend.ptr(ids), backend.ptr(tables), backend.ptr(linear), backend.ptr(bias),
+             backend.FLOAT_CODES[tables.dtype], backend.ptr(out), B, F, V, D,
+             plan.vec, plan.lanes_d, plan.lanes_f, backend.stream(tables.device))
+    backend.check("fm_pairwise", err)
+    forward_launches += 1
     return out

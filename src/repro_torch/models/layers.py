@@ -1,6 +1,8 @@
 """Shared neural layers of the JAX package's ``models/layers.py``: norms,
 RoPE, gated activations and initialisers, plus ``clamp_rows``, the row index
-of JAX's numpy-style gather written out.
+of JAX's numpy-style gather written out (defined beside FM's plain version in
+``kernels/fm_pairwise/ref.py``, which the kernels package imports without
+the models).
 
 The initialisers draw from a ``torch.Generator``; the JAX package draws from
 ``jax.random`` keys, so the same seed gives other values. Parity with the
@@ -12,13 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-
-def clamp_rows(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """int64 row index of JAX's numpy-style indexing: a negative id wraps
-    once, then the index clamps to [0, n_rows-1] (torch would raise, on the
-    card by a device-side assert)."""
-    i = ids.long()
-    return torch.where(i < 0, i + n_rows, i).clamp(0, n_rows - 1)
+from ..kernels.fm_pairwise.ref import clamp_rows  # noqa: F401  (kept importable here)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

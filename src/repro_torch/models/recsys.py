@@ -33,8 +33,9 @@ from torch import nn
 
 from ..backend import default_use_kernel, resolve_device
 from ..kernels.fm_pairwise import ops as fm_ops
-from ..kernels.fm_pairwise.ref import fm_pairwise_ref
-from .layers import clamp_rows, dense_init, embed_init, rms_norm
+from ..kernels.fm_pairwise.ref import fm_forward_ref
+# clamp_rows is also imported from here
+from .layers import clamp_rows, dense_init, embed_init, rms_norm  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +55,7 @@ class RecsysConfig:
     n_interests: int = 4           # mind
     capsule_iters: int = 3         # mind
     dtype: torch.dtype = torch.float32
-    use_kernel: Optional[bool] = None   # fm_pairwise kernel; None: on CUDA
+    use_kernel: Optional[bool] = None   # fm_forward kernel; None: on CUDA
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -135,8 +136,9 @@ class FMModel(_Recsys):
     """Factorization Machine (Rendle ICDM'10), O(nk) sum-square interaction.
 
     ``use_kernel`` (from ``cfg.use_kernel``; None means on CUDA) sends the
-    interaction through the ``fm_pairwise`` CUDA kernel, one launch per
-    forward; otherwise the plain version runs.
+    whole forward through the ``fm_forward`` CUDA kernel, one launch per
+    forward (ids in, logits out); otherwise its plain version
+    ``fm_forward_ref`` runs.
     """
 
     def __init__(self, cfg: RecsysConfig, device=None, seed: int = 0):
@@ -150,14 +152,8 @@ class FMModel(_Recsys):
 
     def forward(self, feats):
         """feats["sparse_ids"] int[B, F] -> logits [B]."""
-        ids = feats["sparse_ids"]
-        n_f, V, D = self.tables.shape
-        # one flat index into the [F*V] rows: field f's table starts at f*V
-        flat = clamp_rows(ids, V) + torch.arange(n_f, device=ids.device) * V
-        emb = self.tables.view(n_f * V, D)[flat]             # [B, F, D]
-        lin = self.linear.view(n_f * V)[flat].sum(-1)
-        pair = fm_ops.fm_pairwise(emb) if self.use_kernel else fm_pairwise_ref(emb)
-        return self.bias + lin + pair
+        fwd = fm_ops.fm_forward if self.use_kernel else fm_forward_ref
+        return fwd(feats["sparse_ids"], self.tables, self.linear, self.bias)
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,15 @@ package by the CPU tests. The packed kernels run for both codecs: the
 lists. Integer outputs must be bit-identical; RMQ ``pos`` is compared
 wherever ``val < INF``. ``fm_pairwise`` is float: rtol 1e-5 and atol 1e-6,
 the atol scaled by the two sums the sum-square identity subtracts (as in
-``test_torch_fm_pairwise.py``), unscaled at the models' embedding scale.
+``test_torch_fm_pairwise.py``), unscaled at the models' embedding scale;
+``fm_forward`` the same, plus in bf16 one bf16 unit in the last place for
+each of its two roundings (the linear sum, then bias + lin).
 ``flash_attention`` is held to its plain version with the tolerances of
 ``tests/test_kernels.py``: rtol and atol 2e-5 in fp32, 2e-2 in bf16; the LM
 at smoke width (fp32) to the plain route within rtol and atol 1e-4.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -26,7 +29,7 @@ from repro_torch.core.codecs import pack_postings
 from repro_torch.data import recsys_batch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fm_pairwise import ops as fm_ops
-from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_ref
+from repro_torch.kernels.fm_pairwise.ref import clamp_rows, fm_forward_ref, fm_pairwise_ref
 from repro_torch.kernels.heap_topk import ops as heap_ops
 from repro_torch.kernels.heap_topk.ref import heap_topk_ref
 from repro_torch.kernels.intersect import ops as isect_ops
@@ -438,19 +441,129 @@ def test_fm_pairwise_kernel_refuses_what_it_does_not_take():
     _assert_fm_close(got, fm_pairwise_ref(e.transpose(1, 2)), e.transpose(1, 2))
 
 
+def _fm_inputs(B, F, D, dtype, scale, seed, V=97, offset=0, device="cuda"):
+    """ids int32 [B, F] with out-of-range ids mixed in, and FM weights of
+    ``dtype`` on ``device``; ``offset`` elements shift the tables' address."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, V, size=(B, F))
+    mask = rng.random((B, F)) < 0.2
+    ids[mask] = rng.choice([-1, -V, -V - 1, -(2**31), V, V + 3, 2**31 - 1], size=int(mask.sum()))
+    buf = torch.tensor(rng.normal(size=F * V * D + offset) * scale, dtype=torch.float32)
+    tables = buf.to(dtype).to(device)[offset:].view(F, V, D)
+    linear = torch.tensor(rng.normal(size=(F, V, 1)) * scale, dtype=torch.float32)
+    bias = torch.tensor(float(rng.normal()) * scale, dtype=torch.float32)
+    return (torch.from_numpy(ids.astype(np.int32)).to(device), tables,
+            linear.to(dtype).to(device), bias.to(dtype).to(device))
+
+
+def _assert_fm_forward_close(got, want, args, scaled, close=True):
+    """``_assert_fm_close`` on the gathered embeddings; in bf16 also one
+    bf16 unit in the last place (at most 2**-7 of the value) for each of
+    the two roundings, the linear sum and then bias + lin, which the kernel
+    and the plain version may take to neighbouring values because their
+    fp32 sums run in other orders: 2**-6 * (|lin| + |bias|) in all.
+    ``close=False`` asserts that the check fails."""
+    ids, tables, linear, bias = args
+    V = tables.shape[1]
+    i = clamp_rows(ids, V)
+    f = torch.arange(tables.shape[0], device=ids.device)
+    e = tables[f, i].double()
+    scale = 1 + (e.sum(1) ** 2 + (e * e).sum(1)).sum(1) if scaled else 1.0
+    bound = 1e-5 * want.double().abs() + 1e-6 * scale
+    if tables.dtype == torch.bfloat16:
+        bound = bound + 2.0**-6 * (bias.double().abs() + linear[f, i, 0].double().sum(1).abs())
+    ok = bool(((got.double() - want.double()).abs() <= bound).all())
+    assert ok == close, float((got.double() - want.double()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,D", [(1, 1), (13, 8), (39, 10), (39, 17), (64, 128)])
+@pytest.mark.parametrize("B", [1, 300, 4099])
+def test_fm_forward_kernel_matches_plain(B, F, D, dtype):
+    """One launch against fm_forward_ref, at unit scale (tolerance scaled
+    by the sum-square identity's two sums) and at the models' 0.02 scale
+    (unscaled); a control, the plain version with the last field dropped,
+    must fail the same check."""
+    _card()
+    for scale in (1.0, 0.02):
+        args = _fm_inputs(B, F, D, dtype, scale, seed=B * F + D)
+        before = (fm_ops.launches, fm_ops.forward_launches)
+        got = fm_ops.fm_forward(*args)
+        torch.cuda.synchronize()
+        assert (fm_ops.launches, fm_ops.forward_launches) == (before[0], before[1] + 1)
+        assert got.dtype == torch.float32 and got.shape == (B,)
+        want = fm_forward_ref(*args)
+        _assert_fm_forward_close(got, want, args, scaled=scale == 1.0)
+        ids, tables, linear, bias = args
+        dropped = (fm_forward_ref(ids[:, :-1].contiguous(), tables[:-1], linear[:-1], bias)
+                   if F > 1 else bias.float().expand(B))
+        _assert_fm_forward_close(got, dropped, args, scaled=scale == 1.0, close=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,D", [(39, 10), (64, 128)])
+def test_fm_forward_kernel_on_unaligned_tables(F, D, dtype):
+    """Tables one element past an aligned address take the narrowest loads
+    (4 bytes in fp32, 2 in bf16)."""
+    _card()
+    args = _fm_inputs(300, F, D, dtype, 1.0, seed=F + D, offset=1)
+    assert fm_ops.plan_fm_forward(300, F, D, args[1].element_size(),
+                                  math.gcd(args[1].data_ptr(), 16)).vec == args[1].element_size()
+    got = fm_ops.fm_forward(*args)
+    _assert_fm_forward_close(got, fm_forward_ref(*args), args, scaled=True)
+
+
+def test_fm_forward_kernel_refuses_what_it_does_not_take():
+    _card()
+    ids, tables, linear, bias = _fm_inputs(16, 13, 8, torch.float32, 1.0, seed=1)
+    before = fm_ops.forward_launches
+    empty = fm_ops.fm_forward(ids[:0], tables, linear, bias)
+    assert empty.shape == (0,) and fm_ops.forward_launches == before
+    wide = _fm_inputs(4, 65, 8, torch.float32, 1.0, seed=2)
+    deep = _fm_inputs(4, 13, 129, torch.float32, 1.0, seed=3)
+    bad = [
+        (ids.long(), tables, linear, bias),                       # int64 ids
+        (ids.t().contiguous().t(), tables, linear, bias),         # ids not contiguous
+        (ids[0], tables, linear, bias),                           # ids not [B, F]
+        (ids.cpu(), tables, linear, bias),                        # ids off the card
+        (ids[:, :12].contiguous(), tables, linear, bias),         # F mismatched
+        (ids, tables.transpose(1, 2).contiguous().transpose(1, 2), linear, bias),
+        (ids, tables.double(), linear.double(), bias.double()),   # float64
+        (ids, tables, linear[..., 0], bias),                      # linear not [F, V, 1]
+        (ids, tables, linear.to(torch.bfloat16), bias),           # linear's dtype
+        (ids, tables, linear, bias.to(torch.bfloat16)),           # bias's dtype
+        (ids, tables, linear, bias.expand(2).contiguous()),       # bias not one value
+        wide, deep,                                               # F > 64, D > 128
+        (ids, tables.clone().requires_grad_(), linear, bias),     # grad enabled
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fm_ops.fm_forward(*args)
+    assert fm_ops.forward_launches == before
+
+
 def test_fm_model_launches_the_kernel_once_per_forward():
+    """FMModel's kernel route is one fm_forward launch (no fm_pairwise),
+    allocating only its output: no [B, F, D] or int64 index tensor; the
+    plain route launches nothing; the two agree."""
     _card()
     cfg = get_arch("fm").smoke_cfg
     model = FMModel(cfg, device="cuda")
     feats, _ = recsys_batch(cfg, 300, np.random.default_rng(0))
     feats = {k: torch.from_numpy(v).cuda() for k, v in feats.items()}
     with torch.inference_mode():
-        before = fm_ops.launches
+        model(feats)                                  # build and load the kernel first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = (fm_ops.launches, fm_ops.forward_launches)
         routed = model(feats)
-        assert fm_ops.launches == before + 1
+        torch.cuda.synchronize()
+        assert (fm_ops.launches, fm_ops.forward_launches) == (before[0], before[1] + 1)
+        assert torch.cuda.max_memory_allocated() - base <= 2048     # the [300] output
         model.use_kernel = False
         plain = model(feats)
-        assert fm_ops.launches == before + 1
+        assert (fm_ops.launches, fm_ops.forward_launches) == (before[0], before[1] + 1)
     torch.testing.assert_close(routed, plain, rtol=1e-5, atol=1e-6)
 
 
