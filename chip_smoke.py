@@ -45,25 +45,26 @@ Phases, each printing its lines before the next starts:
      with the distributions of ``SynthLogConfig``, with its postings packed
      as "ef" (the default of ``build_qac_index``) and the same lists packed
      once more as "bitpack", each round-tripped, and their sizes; the host
-     build's time, ``rank_rows`` and its lexsort timed again alone on the
-     index's own rows, and a cProfile of a 300,000-query build;
+     build's time;
   6. each QAC kernel against its plain PyTorch version on the card at the
      main path's shapes (bit-identical), the packed kernels for both codecs;
      the kernel's device time per launch from ``torch.profiler``, and
      CUDA-event times per call of the wrapper (host-inclusive) and of the
-     plain version (3 calls only for the plain heap_topk and packed scan,
-     which take up to a second each). heap_topk at its four (k, trips)
+     plain version (the one checked call, host-timed, for the plain
+     heap_topk, packed scans and top-k, which take up to seconds each;
+     3 calls for the raw scan). heap_topk at its four (k, trips)
      cases on every codec, with the most trips any lane ran (the plain
      version counts them) and the kernel's us per trip; the single-term
      routes side by side (the engine through heap_topk and through the
      per-pop RMQ kernel, raw and "ef", on the batch's first B term ranges,
-     B = 1, 8, 64, 256, k=10, trips=12), device us and wrapper us per call
+     B = 1, 8, 64, 256, k=10, trips=12; the per-pop route over 4 calls,
+     the heap_topk route over 20), device us and wrapper us per call
      each. The per-tile conjunctive_scan kernels
      at B=64 T=128; the one-launch conjunctive_topk kernels on the batch's
      multi-term queries (k=10, tile=128) at the full cap (4,096 tiles) and
      at PLAIN_TILES held against topk_walk, a chunked torch version, and at
-     PLAIN_TILES raw and PACKED_PLAIN_TILES "ef" and "bitpack" against
-     their plain tile loop (and topk_walk there too), with the longest
+     PACKED_PLAIN_TILES against their plain tile loop (and topk_walk there
+     too; phase 7 holds the raw loop at PLAIN_TILES), with the longest
      lane's candidate count beside each bound; and the chunk-cutting cases
      (a cap of 16 candidates at k = 1, 10, 128, a dead lane and an empty
      needed span) on every codec;
@@ -82,6 +83,17 @@ Phases, each printing its lines before the next starts:
      of the kernel route and of the "ef" route (``torch.profiler``, CUDA
      activity) for the device's busy share and the kernels that take its
      time;
+ 7b. the docid-striped index: phase 5's rows in 4 docid stripes ("ef"
+     packed, ``build_striped``), its host build's time and the bytes each
+     stripe holds on the card; the main batch through ``qac_serve_striped``
+     (a loop over the stripes on the card) on the raw and the "ef" route,
+     launching heap_topk and conjunctive_topk (or their packed forms) once a
+     stripe, as predicted, bit-identical to phase 7's kernel route on every
+     lane that route did not cut at its cap (a cut lane holds its answer as
+     a prefix), with µs per query and a traced call's busy share; the
+     strided conjunctive_topk (``fwd_stride`` 4) on stripe 0 held against its
+     plain version, at the path's cap against ``topk_walk`` with the stride
+     and at PACKED_PLAIN_TILES against the plain tile loop, raw and "ef";
   8. the online runtime and the serving cluster on that index: a keystroke
      trace of 256 sessions typing 2 queries each (a keystroke per 150 ms a
      session, ~18,000 requests over ~26 s) prepared at k=10; ``QACOnlineRuntime`` at
@@ -93,8 +105,9 @@ Phases, each printing its lines before the next starts:
      wall against the trace's span, p99.9 against 50 ms (a report), no
      callable minted after the freeze, and heap_topk and conjunctive_topk
      launches equal to what the dispatch log predicts (no rmq_query); a
-     4-replica cluster (``cluster_config()``, a quarter of the sessions
-     bulk) sharing one frontend, replica 0 killed at the trace's midpoint
+     4-replica cluster (``cluster_config()``) on the trace's first quarter
+     (a quarter of the sessions bulk) sharing one frontend, replica 0
+     killed at that quarter's midpoint
      and back after 2 heartbeat timeouts: per-class p50, p99 and p99.9,
      rejections by reason, re-routed and degraded counts, the share served
      during the outage; every runtime row and every served cluster row
@@ -102,14 +115,15 @@ Phases, each printing its lines before the next starts:
   9. the live index (``GenerationalQAC``: a delta tier merged exactly over
      each generation, rebuild-and-swap): (a) a parity drill at small depth,
      a 20,000-query log, ``FreshnessConfig(k=10, delta_capacity=256,
-     swap_threshold=32)``, a mutation trace of 64 sessions x 1 query and
+     swap_threshold=32)``, a mutation trace of 32 sessions x 1 query and
      100 mutations: every answer equal to a from-scratch build of its
      visible version on the card, at least 2 swaps, delta hits, one cache
      invalidation per swap, traffic in the first and last generation, and
      the same trace through the plain route giving equal answers; (b) the
-     live index over phase 5's log at ``QACArch().freshness_config()``
+     live index serving phase 5's build as generation 0 (no second
+     build) at ``QACArch().freshness_config()``
      (capacity 4,096, threshold 1,024) and ``runtime_config()``, a mutation
-     trace over its completions with phase 8's keystroke shape and 1,200
+     trace over its completions with phase 8's sessions and keystroke shape and 1,200
      mutations, one ``run_mutation_trace`` (no warm pass): exactly one
      swap, per-request p50-p99.9 against phase 8's, apply p50 and p99, the
      rebuild wall with its build, "ef" packing, frontend and warm-up parts,
@@ -119,7 +133,12 @@ Phases, each printing its lines before the next starts:
      equal to what the dispatch logs of every generation predict (no
      rmq_query), and 256 answers of each generation (every delta hit among
      them, up to that count) equal to ``witness_answers``;
- 10. one JSON line naming every kernel with its launches, times and bound.
+ 10. the port's launcher in this process, ``repro_torch.launch.serve.main``
+     at its defaults on the card: the fused step, ``--routed``, ``--stripes
+     4``, ``--interactive``, and ``--online --observe --check --trace-out``
+     (at 32 sessions),
+     then ``repro_torch.obs.report --check`` on that trace, each mode's wall;
+ 11. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
 """
@@ -127,13 +146,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import cProfile
 import dataclasses
 import functools
 import itertools
 import json
 import os
-import pstats
 import re
 import subprocess
 import sys
@@ -153,11 +170,14 @@ CODECS = ("ef", "bitpack")
 MAX_PACKED_READ = 12 + 8 + 32      # directory, two payload words, the EF bitmap
 PLAIN_QUERIES = 32                 # the plain route's share of the main batch
 PLAIN_TILES = 256                  # its multi-term tile cap, and the capped kernel route's
-PACKED_PLAIN_TILES = 16            # the packed plain top-k's cap in phase 6 (~0.6 s a tile "ef")
+PACKED_PLAIN_TILES = 9             # the plain top-k tile loop's cap in phases 6 and 7b (~0.8 s
+                                   # a tile "ef"): 1,152 candidates cross the kernel's first
+                                   # 1,024-candidate chunk
 KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
               #          kernel it replaces, the counted runs that launch
               #          it: frontend routes' main batches, the recsys and
-              #          LM phases, the online runtime's measured pass, the
+              #          LM phases, the striped index's two routes, the
+              #          online runtime's measured pass, the
               #          live index's run at scale)
     "rmq_query": ("repro_torch.kernels.rmq.ops", "launches",
                   "src/repro_torch/csrc/rmq.cu",
@@ -165,17 +185,18 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
     "heap_topk": ("repro_torch.kernels.heap_topk.ops", "launches",
                   "src/repro_torch/csrc/heap_topk.cu",
                   "src/repro/kernels/heap_topk/kernel.py:186",
-                  ("kernels", "online", "fresh")),
+                  ("kernels", "striped", "online", "fresh")),
     "conjunctive_scan": ("repro_torch.kernels.intersect.ops", "launches",
                          "src/repro_torch/csrc/intersect.cu",
                          "src/repro/kernels/intersect/kernel.py:137", ()),
     "conjunctive_topk": ("repro_torch.kernels.intersect.ops", "topk_launches",
                          "src/repro_torch/csrc/intersect.cu",
                          "src/repro/kernels/intersect/kernel.py:137",
-                         ("kernels", "online", "fresh")),
+                         ("kernels", "striped", "online", "fresh")),
     "heap_topk_packed": ("repro_torch.kernels.heap_topk.ops", "packed_launches",
                          "src/repro_torch/csrc/heap_topk.cu",
-                         "src/repro/kernels/heap_topk/kernel.py:72", CODECS),
+                         "src/repro/kernels/heap_topk/kernel.py:72",
+                         (*CODECS, "striped")),
     "conjunctive_scan_packed": ("repro_torch.kernels.intersect.ops",
                                 "packed_launches",
                                 "src/repro_torch/csrc/intersect.cu",
@@ -183,7 +204,8 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
     "conjunctive_topk_packed": ("repro_torch.kernels.intersect.ops",
                                 "topk_packed_launches",
                                 "src/repro_torch/csrc/intersect.cu",
-                                "src/repro/kernels/intersect/kernel.py:110", CODECS),
+                                "src/repro/kernels/intersect/kernel.py:110",
+                                (*CODECS, "striped")),
     "fm_pairwise": ("repro_torch.kernels.fm_pairwise.ops", "launches",
                     "src/repro_torch/csrc/fm_pairwise.cu",
                     "src/repro/kernels/fm_pairwise/kernel.py:27", ()),
@@ -507,7 +529,7 @@ def probe_positions(torch, postings, cands, starts, ends, iters):
 
 
 def topk_walk(torch, postings, lanes, fwd_terms, tl, th, k, cap, iters, pk=None,
-              count=True, chunk=8192):
+              count=True, chunk=8192, stride=1):
     """The multi-term engine's answer at cap ``cap``, worked out with torch
     over each lane's candidates in chunks, all lanes at once: (int32[B, k],
     bytes conjunctive_topk needs on these lanes, the longest lane's candidate
@@ -517,7 +539,8 @@ def topk_walk(torch, postings, lanes, fwd_terms, tl, th, k, cap, iters, pk=None,
     row (4·M B) of each in [0, N), and, for each forward-passing candidate,
     the posting at its insertion point (4 B raw, else its packed read) in
     each needed span until the first that misses; a dead lane reads its flag
-    alone; 4·B·k of output."""
+    alone; 4·B·k of output. ``stride`` S > 1 reads a docid stripe's forward
+    rows: docid d is row d // S, valid while d < N·S."""
     d_start, d_end, starts, ends, dead = lanes
     B, P = starts.shape
     n, (N, M) = postings.numel(), fwd_terms.shape
@@ -533,8 +556,8 @@ def topk_walk(torch, postings, lanes, fwd_terms, tl, th, k, cap, iters, pk=None,
         pos = c0 + torch.arange(chunk, device=dev)
         inr = pos[None, :] < limit[:, None]                         # [B, C]
         cand = torch.where(inr, postings[(d_start.long()[:, None] + pos).clamp(max=n - 1)], INF)
-        in_fwd = inr & (cand >= 0) & (cand < N)
-        rows = torch.where(in_fwd[..., None], fwd_terms[cand.clamp(0, N - 1)], 0)
+        in_fwd = inr & (cand >= 0) & (cand.long() < N * stride)
+        rows = torch.where(in_fwd[..., None], fwd_terms[(cand // stride).clamp(0, N - 1)], 0)
         fwd_ok = inr & ((rows >= tl[:, None, None]) & (rows < th[:, None, None])).any(2)
         at = probe_positions(torch, postings, cand, starts, ends, iters)   # [B, C, P]
         holds = ((at < ends[:, None, :]) & (postings[at] == cand[..., None])) | ~need
@@ -562,25 +585,39 @@ def topk_walk(torch, postings, lanes, fwd_terms, tl, th, k, cap, iters, pk=None,
 # --------------------------------------------------------------------------
 # brute-force host reference
 # --------------------------------------------------------------------------
+def ascending_lists(offs, post) -> bool:
+    """Whether every CSR list is strictly ascending, as ``brute_force``
+    takes it."""
+    ends = offs[(offs > 0) & (offs < post.size)].astype(np.int64)
+    step = np.diff(post.astype(np.int64)) > 0
+    step[ends - 1] = True                      # a list boundary may step down
+    return bool(step.all())
+
+
 def brute_force(arrays, plen, pids, tlo, thi, k, scan_cap):
     """Top-k docids of one parsed query straight from the CSR postings and
     the forward index (no RMQ, no probes): the candidates are the prefix
     lists' intersection (or, single-term, the union of the suffix range's
     lists); a candidate counts when its forward row holds a suffix term.
     The engine scans at most ``scan_cap`` postings of the shortest prefix
-    list (``max_tiles * tile``), and so does this."""
+    list (``max_tiles * tile``), and so does this. Every list is strictly
+    ascending (``ascending_lists``): the k smallest of a union lie among
+    each list's first k, and a candidate is in a list where a binary
+    search finds it."""
     offs, post, fwd = arrays
     if tlo >= thi or (plen > 0 and (pids[:plen] == 0).any()):
         docs = np.zeros(0, np.int64)
     elif plen == 0:
-        docs = np.unique(post[offs[tlo]:offs[thi]])
+        s, e = offs[tlo:thi].astype(np.int64), offs[tlo + 1:thi + 1].astype(np.int64)
+        docs = np.unique(np.concatenate([post[s[s + j < e] + j] for j in range(k)]))
     else:
         lists = [post[offs[t]:offs[t + 1]] for t in pids[:plen]]
         driver = int(np.argmin([len(x) for x in lists]))
         docs = lists[driver][:scan_cap]
         for j, lst in enumerate(lists):
             if j != driver:
-                docs = np.intersect1d(docs, lst)
+                at = np.minimum(np.searchsorted(lst, docs), max(len(lst) - 1, 0))
+                docs = docs[(lst[at] == docs) if len(lst) else np.zeros(len(docs), bool)]
         rows = fwd[docs]
         docs = docs[((rows >= tlo) & (rows < thi)).any(axis=1)]
     out = np.full(k, INF, np.int64)
@@ -1201,6 +1238,194 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 7b: the docid-striped index
+# --------------------------------------------------------------------------
+STRIPES = 4
+
+
+def striped_phase(torch, dev, qidx, inputs, tl, th, want, kernel_us, smi, hold,
+                  reset_counts, read_counts) -> dict:
+    """The index's own rows in STRIPES docid stripes ("ef" packed) on the
+    card, built on the host; the main batch through ``qac_serve_striped``'s
+    loop over the stripes on the raw and the "ef" route, each launching
+    heap_topk and conjunctive_topk (or their packed forms) once a stripe,
+    equal to phase 7's unstriped kernel route ``want`` on every lane its
+    engine did not cut at the cap (a lane whose driver list is longer than
+    the cap and which found fewer than k hits: each stripe walks the cap of
+    its own quarter of that list, so such a lane holds ``want`` as a prefix
+    and may find more, as in the JAX package); the strided conjunctive_topk
+    on stripe 0 held against its plain version with the stride, at the
+    path's cap against ``topk_walk`` and at the plain tile loop's caps.
+    Returns the two routes' launch counts, summed."""
+    from repro_torch.core.search import conjunctive_lanes
+    from repro_torch.core.striped import build_striped, local_index
+    from repro_torch.kernels.intersect import ops as isect_ops
+    from repro_torch.kernels.intersect.ref import (conjunctive_topk_packed_ref,
+                                                   conjunctive_topk_ref)
+    from repro_torch.serve import qac_serve_striped
+    from torch.profiler import ProfilerActivity, profile
+
+    comps, idx = qidx.completions, qidx.index
+    S = STRIPES
+    t0 = time.perf_counter()
+    fwd = comps.fwd_terms.cpu().numpy()
+    striped = build_striped(fwd, np.arange(len(fwd), dtype=np.int32), idx.n_terms, S,
+                            "ef", device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    del fwd
+    per = [striped.stripe_nbytes(s) / 2**20 for s in range(S)]
+    packed_mib = striped.pp_words[0].numel() * 4 / 2**20 + striped.pp_base[0].numel() * 12 / 2**20
+    say(f"[striped] {S} docid stripes of the {comps.n} completions (\"ef\" packed) built "
+        f"on the host in {t_build:.1f} s: {striped.n_local_docs} forward rows and "
+        f"{striped.postings_pad} postings a stripe (padded); on the card "
+        f"{', '.join(f'{m:.1f}' for m in per)} MiB a stripe, of it {packed_mib:.1f} MiB "
+        f"of \"ef\" postings, beside the unstriped raw index; on {smi}")
+
+    pids, plen, suf, slen = inputs
+    B = plen.numel()
+    k, cap = 10, 4096 * 128
+    d_start, d_end, _, _, dead = conjunctive_lanes(idx, pids, plen, tl, th)
+    cut = ((~dead & ((d_end - d_start) > cap)).cpu().numpy()
+           & ((want < INF).sum(1) < k))
+    whole = ~cut
+    classes = (int(bool((plen == 0).any())), int(bool((plen > 0).any())))
+    predict = {None: {"heap_topk": S * classes[0], "conjunctive_topk": S * classes[1]},
+               "ef": {"heap_topk_packed": S * classes[0],
+                      "conjunctive_topk_packed": S * classes[1]}}
+    counted, answers = {}, {}
+    for codec in (None, "ef"):
+        route = codec or "raw"
+
+        def serve():
+            return qac_serve_striped(striped, qidx.dictionary, pids, plen, suf, slen, k=k,
+                                     postings_codec=codec)
+        reset_counts()
+        torch.cuda.synchronize()
+        out = serve()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for name, c in counts.items():
+            if c != predict[codec].get(name, 0):
+                fail(f"striped {route}: launched {name} {c} times; {S} stripes with both "
+                     f"classes predict {predict[codec]} ({counts})")
+            counted[name] = counted.get(name, 0) + c
+        got = answers[route] = out.cpu().numpy()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"striped {route}: answers {got.shape} {got.dtype}, the unstriped "
+                 f"{want.shape} {want.dtype}")
+        if not np.array_equal(got[whole], want[whole]):
+            bad = int((got[whole] != want[whole]).any(1).sum())
+            fail(f"striped {route}: {bad} of {int(whole.sum())} uncut lanes differ from "
+                 "phase 7's kernel route")
+        n_found = (want < INF).sum(1)
+        for i in np.flatnonzero(cut):
+            if not np.array_equal(got[i, :n_found[i]], want[i, :n_found[i]]):
+                fail(f"striped {route}: cut lane {i} does not hold the unstriped answer "
+                     "as a prefix")
+        ms = median_ms(torch, serve, 5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve()
+            torch.cuda.synchronize()
+        events = device_times(prof)
+        busy_us = sum(d for d, _, _ in events)
+        more = int(((got < INF).sum(1) > n_found)[cut].sum())
+        say(f"[striped] {route} route, B={B}, k={k}: launches {counts} (predicted "
+            f"{predict[codec]}); {int(whole.sum())} lanes bit-identical to phase 7's "
+            f"kernel route, {int(cut.sum())} lanes cut at the cap ({cap} candidates) hold "
+            f"its answer as a prefix ({more} of them find more hits); "
+            f"{ms * 1e3 / B:.1f} us/query (median of 5 calls) against phase 7's kernel "
+            f"route {kernel_us:.1f}; one traced call: device busy {busy_us / 1e3:.2f} ms "
+            f"of {ms:.2f} ms, busy share {busy_us / 1e3 / ms:.4f}; on {smi}")
+        for d, key, count in events[:4]:
+            say(f"[striped]   {d / 1e3:9.2f} ms  {count:7d} x  {key[:90]}")
+    if not np.array_equal(answers["raw"], answers["ef"]):
+        fail("striped: the raw and \"ef\" routes differ")
+
+    # the strided conjunctive_topk on stripe 0 against its plain version
+    idx0, fwd0, _ = local_index(striped, 0)
+    mq = torch.nonzero(plen > 0)[:, 0]
+    tlm, thm = tl[mq], th[mq]
+    lanes = conjunctive_lanes(idx0, pids[mq], plen[mq], tlm, thm)
+    longest = int(torch.where(lanes[3] > lanes[2], lanes[3] - lanes[2], 0).max())
+    iters = (1 << max(1, (max(longest, 1) - 1).bit_length())).bit_length()  # as the frontend
+    fargs = (*lanes, fwd0.fwd_terms, tlm, thm)
+    pk = idx0.packed
+    for codec in (None, "ef"):
+        name = "conjunctive_topk" if codec is None else "conjunctive_topk_packed"
+        kernel = (isect_ops.conjunctive_topk if codec is None else
+                  functools.partial(isect_ops.conjunctive_topk_packed, idx0.postings, pk))
+        loop = (conjunctive_topk_ref if codec is None else
+                functools.partial(conjunctive_topk_packed_ref, idx0.postings, pk))
+        base = (idx0.postings,) if codec is None else ()
+        loop_tiles = PACKED_PLAIN_TILES
+        for max_tiles in (4096, loop_tiles):
+            kw = dict(k=k, tile=128, max_tiles=max_tiles, iters=iters, fwd_stride=S)
+            walk = functools.partial(topk_walk, torch, idx0.postings, lanes, fwd0.fwd_terms,
+                                     tlm, thm, k, 128 * max_tiles, iters, stride=S)
+            answer, b_topk, stop = walk(pk if codec else None)
+            if max_tiles == loop_tiles:
+                plain, held_by = (lambda: loop(*base, *fargs, **kw)), "tile loop"
+            else:
+                plain, held_by = (lambda: walk(count=False)[0]), "topk_walk"
+            case = (f"stripe 0 of {S}, fwd_stride {S}, B={mq.numel()} k={k} tile=128 "
+                    f"max_tiles={max_tiles} iters={iters}")
+            c = hold(name, lambda: kernel(*base, *fargs, **kw), plain, torch.equal, b_topk,
+                     20, case, codec, plain_reps=0, trace_reps=50)
+            c["longest_lane"], c["plain"] = stop, held_by
+            if not torch.equal(answer, kernel(*base, *fargs, **kw)):
+                fail(f"{name} {case}: topk_walk disagrees with the kernel")
+            say(f"[striped] {name}[{codec or 'raw'}] {case}: device {c['ms'] * 1e3:.2f} "
+                f"us/launch, call {c['call_ms'] * 1e3:.2f} us, plain ({held_by}, one call) "
+                f"{c['plain_ms'] * 1e3:.2f} us, bound {c['bound_ms'] * 1e3:.4f} us "
+                f"({b_topk} B; longest lane {stop} candidates) | equal; on {smi}")
+    return counted
+
+
+# --------------------------------------------------------------------------
+# phase 10: the port's launcher
+# --------------------------------------------------------------------------
+LAUNCH_SESSIONS = 32     # the online check's sessions (its one-request-per-dispatch
+                         # reference grows with them; the default 64 took 26 s)
+
+
+def launcher_phase(smi):
+    """``repro_torch.launch.serve.main`` in this process at its defaults
+    (--queries 20000, --batch 256) on the card: the fused step, --routed,
+    --stripes 4, --interactive on a partial from the launcher's log, and
+    --online --observe --check --trace-out, whose trace
+    ``repro_torch.obs.report`` then checks. An exception fails the script."""
+    import tempfile
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.serve import sample_partials
+    from repro_torch.obs import report
+    from repro_torch.text import SynthLogConfig, generate_query_log
+
+    qs, _ = generate_query_log(SynthLogConfig(n_queries=20_000))
+    partial = sample_partials([q for q in qs if q.split()], 1, seed=3)[0]
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.jsonl")
+        modes = {"fused": [], "routed": ["--routed"], "stripes 4": ["--stripes", "4"],
+                 "interactive": ["--interactive", partial],
+                 "online observe check": ["--online", "--observe", "--check",
+                                          "--sessions", str(LAUNCH_SESSIONS),
+                                          "--trace-out", trace]}
+        for mode, argv in modes.items():
+            t0 = time.perf_counter()
+            if launch_serve.main(argv) != 0:
+                fail(f"launcher {mode}: non-zero return")
+            walls[mode] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if report.main([trace, "--check"]) != 0:
+            fail("obs.report --check: non-zero return")
+        walls["obs.report --check"] = time.perf_counter() - t0
+    say("[launch] python -m repro_torch.launch.serve in process, wall s: " + ", ".join(
+        f"{m} {w:.1f}" for m, w in walls.items()) + f"; on {smi}")
+
+
+# --------------------------------------------------------------------------
 # phase 8: the online runtime and the serving cluster
 # --------------------------------------------------------------------------
 def uncached_rows(fe, reqs, pairs):
@@ -1222,7 +1447,8 @@ def uncached_rows(fe, reqs, pairs):
     return want
 
 
-ONLINE_SESSIONS = 256    # phase 8's trace; 512 took the script past 1,000 s of its 1,200
+ONLINE_SESSIONS = 256    # phase 8's and phase 9 (b)'s traces; 512 took the script past
+                         # 1,000 s of its 1,200
 
 
 def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts):
@@ -1305,11 +1531,13 @@ def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts):
         f"{engines.count('single_full')} full-budget fallbacks, conjunctive_topk = "
         f"{engines.count('multi')} multi-term dispatches, as the dispatch log predicts")
 
-    # the cluster: a kill drill on replica 0 at the trace's midpoint, back
+    # the cluster: the trace's first quarter (its replay costs ~5x the
+    # runtime's), a kill drill on replica 0 at that quarter's midpoint, back
     # after 2 heartbeat timeouts; one warm frontend shared by every replica
     cl_cfg = arch.cluster_config()
-    sla = assign_sla(reqs, bulk_fraction=0.25)
-    t_kill = reqs[len(reqs) // 2].t_us
+    creqs = reqs[:len(reqs) // 4]
+    sla = assign_sla(creqs, bulk_fraction=0.25)
+    t_kill = creqs[len(creqs) // 2].t_us
     t_up = t_kill + 2 * cl_cfg.heartbeat_timeout_us
     shared = arch.frontend(qidx)
     cluster = QACServingCluster(qidx, cl_cfg, arch.runtime_config(),
@@ -1317,10 +1545,11 @@ def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts):
                                 injector=FaultInjector([], replica_faults=[
                                     ReplicaFault(0, t_kill, t_up)]))
     t0 = time.perf_counter()
-    res = cluster.replay(reqs, sla)
+    res = cluster.replay(creqs, sla)
     t_cluster = time.perf_counter() - t0
     cs = cluster.telemetry.snapshot()
-    say(f"[online] cluster {cl_cfg}: {sum(s == 'bulk' for s in sla)} bulk requests; "
+    say(f"[online] cluster {cl_cfg}: the trace's first {len(creqs)} requests, "
+        f"{sum(s == 'bulk' for s in sla)} of them bulk; "
         f"replica 0 down {t_kill / 1e6:.3f}-{t_up / 1e6:.3f} s; replay (warm pass, "
         f"reset, measured pass) {t_cluster:.1f} s")
     for cls in ("interactive", "bulk"):
@@ -1328,7 +1557,7 @@ def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts):
         say(f"[online] cluster {cls}: {cs[f'{cls}_served']} served, ms p50 "
             f"{fmt(p['p50'], 1e3, 3)} p99 {fmt(p['p99'], 1e3, 3)} p99.9 "
             f"{fmt(p['p99.9'], 1e3, 3)} on {smi}")
-    during = [r for q, r in zip(reqs, res) if t_kill <= q.t_us < t_up]
+    during = [r for q, r in zip(creqs, res) if t_kill <= q.t_us < t_up]
     say(f"[online] cluster: rejected {cs['rejected']} by reason {cs['shed']}, re-routed "
         f"{cs['rerouted']}, degraded {sum(r.degraded for r in res)}; deaths "
         f"{cs['deaths']}, readmissions {cs['readmissions']}, per replica "
@@ -1340,7 +1569,7 @@ def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts):
     # every runtime row and every served cluster row against the uncached
     # frontend at the k it was served with
     t0 = time.perf_counter()
-    served = [(q, r) for q, r in zip(reqs, res) if r.status == "ok"]
+    served = [(q, r) for q, r in zip(creqs, res) if r.status == "ok"]
     pairs = {(q.key, q.k) for q in reqs} | {(q.key, r.k_served) for q, r in served}
     want_rows = uncached_rows(QACFrontend(qidx, k=10), reqs, pairs)
     for q, row in zip(reqs, rows):
@@ -1360,6 +1589,8 @@ def online_phase(torch, qidx, kept, seed, smi, reset_counts, read_counts):
 # phase 9: the live index
 # --------------------------------------------------------------------------
 FRESH_SAMPLE = 256       # answers of each generation held against the witness
+DRILL_SESSIONS = 32      # the drill's sessions: each distinct version its answers
+                         # saw is built from scratch (~0.45 s each on an H100's host)
 
 
 def mutation_trace(kept, scores, sessions, queries_per_session, keystroke_ms,
@@ -1454,7 +1685,7 @@ def fresh_drill(torch, seed, smi, reset_counts, read_counts, clock_step_s=2.0 **
 
     t0 = time.perf_counter()
     qs, sc = generate_query_log(SynthLogConfig(n_queries=20_000, seed=seed))
-    events = mutation_trace(qs, sc, 64, 1, 2.0, 100, seed)
+    events = mutation_trace(qs, sc, DRILL_SESSIONS, 1, 2.0, 100, seed)
     n_req = sum(e.kind == "request" for e in events)
     say(f"[fresh] drill: a 20,000-query log ({SynthLogConfig.vocab_size} terms), "
         f"{n_req} requests and {len(events) - n_req} mutations, made in "
@@ -1562,30 +1793,33 @@ def fresh_sample(results):
     return out
 
 
-def live_index_phase(torch, queries, scores, kept, sc_kept, seed, smi, online_ms,
+def live_index_phase(torch, qidx, kept, sc_kept, seed, smi, online_ms,
                      reset_counts, read_counts) -> dict:
     """(b) The live index at qac-ebay scale: one run of a mutation trace
-    with phase 8's keystroke shape through ``GenerationalQAC`` over phase
-    5's log, exactly one swap. Returns the run's kernel counts."""
+    with phase 8's keystroke shape through ``GenerationalQAC`` serving
+    phase 5's build as generation 0 (no second build), exactly one swap.
+    Returns the run's kernel counts."""
     from repro_torch.configs import get_arch
     from repro_torch.obs import percentiles
     from repro_torch.serve import GenerationalQAC, witness_answers
 
     arch = get_arch("qac-ebay")
     t0 = time.perf_counter()
-    events = mutation_trace(kept, sc_kept, 512, 2, 150.0, 1200, seed)
+    events = mutation_trace(kept, sc_kept, ONLINE_SESSIONS, 2, 150.0, 1200, seed)
     n_req = sum(e.kind == "request" for e in events)
     span_s = (events[-1].t_us - events[0].t_us) / 1e6
     say(f"[fresh] trace over the {len(kept)} completions: {n_req} requests and "
         f"{len(events) - n_req} mutations over {span_s:.2f} s, made in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    gq = GenerationalQAC(queries, scores, cfg=arch.freshness_config(),
-                         rt_cfg=arch.runtime_config(), device=DEVICE)
+    gq = GenerationalQAC(None, None, cfg=arch.freshness_config(),
+                         rt_cfg=arch.runtime_config(), device=DEVICE,
+                         built=(qidx, kept, sc_kept))
     torch.cuda.synchronize()
     say(f"[fresh] GenerationalQAC({arch.freshness_config()}, {arch.runtime_config()}) "
-        f"over the {len(queries)}-query log: {time.perf_counter() - t0:.1f} s, of it "
-        f"the host view {gq.history[0].view_us / 1e6:.2f} s")
+        f"over phase 5's build of {len(kept)} completions (no second build): "
+        f"{time.perf_counter() - t0:.1f} s, of it the host view "
+        f"{gq.history[0].view_us / 1e6:.2f} s")
     reset_counts()
     torch.cuda.synchronize()
     gq.begin_dispatch_log()
@@ -1664,7 +1898,6 @@ def main() -> int:
     from repro_torch import backend
     from repro_torch.core import build_qac_index, parse_queries
     from repro_torch.core.codecs import pack_postings, unpack_postings
-    from repro_torch.core.completions import rank_rows
     from repro_torch.kernels.heap_topk.ref import heap_topk_ref
     from repro_torch.core.search import (conjunctive_lanes,
                                          single_term_topk_bounded_batch)
@@ -1689,10 +1922,18 @@ def main() -> int:
     t_start = time.perf_counter()
     t_lap = [t_start]
 
+    t_part = [t_start]
+
     def lap(phase):
         now = time.perf_counter()
         say(f"[time] phase {phase}: {now - t_lap[0]:.1f} s ({now - t_start:.1f} s in all)")
-        t_lap[0] = now
+        t_lap[0] = t_part[0] = now
+
+    def part(label):
+        """The time since the phase's start or its previous part."""
+        now = time.perf_counter()
+        say(f"[time]   {label}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
 
     # ---- 1. card and versions ---------------------------------------------
     smi = nvidia_smi()
@@ -1740,12 +1981,18 @@ def main() -> int:
         """Check the kernel against its plain version; time both, and the one
         PyTorch call ``library`` that computes the same function where there
         is one. Returns the case's record: device ms per launch (over a trace
-        of ``trace_reps`` calls), ms per wrapper call, plain ms, library ms,
+        of ``trace_reps`` calls), ms per wrapper call, plain ms (with
+        ``plain_reps=0`` the one checked call, host-timed to a synchronise,
+        for plain versions that take seconds), library ms,
         the bound (the larger of bytes over the memory rate and operations
         over ``ops_per_s``) and the largest absolute difference of a float
         output from the plain version's (0 for the exact ones)."""
-        got, want = run_kernel(), run_plain()
+        got = run_kernel()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = run_plain()
+        torch.cuda.synchronize()
+        plain_once_ms = (time.perf_counter() - t0) * 1e3
         if not equal(got, want):
             fail(f"{name} {case}: kernel disagrees with its plain version")
         err = (float((got.double() - want.double()).abs().max()) if
@@ -1757,7 +2004,8 @@ def main() -> int:
         c = {"case": case, **({"codec": codec} if codec else {}),
              "ms": ms, "traced_launches": held,
              "call_ms": cuda_ms(torch, run_kernel, reps),
-             "plain_ms": cuda_ms(torch, run_plain, plain_reps or max(3, reps // 20)),
+             "plain_ms": plain_once_ms if plain_reps == 0 else
+                         cuda_ms(torch, run_plain, plain_reps or max(3, reps // 20)),
              "library_ms": cuda_ms(torch, library, reps) if library else None,
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1787,27 +2035,8 @@ def main() -> int:
                                           postings_codec="ef", device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    part("log and host build")
     idx, comps, rm = qidx.index, qidx.completions, qidx.rmq_minimal
-    # the build's ranking step again, on its own rows (the completions in
-    # lexicographic order) and scores: rank_rows, and its lexsort alone
-    docids_h = comps.docids.cpu().numpy()
-    rows_h = comps.fwd_terms.cpu().numpy()[docids_h]
-    t0 = time.perf_counter()
-    d_of_row, _ = rank_rows(rows_h, sc_kept)
-    t_rank = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    np.lexsort(tuple(rows_h[:, j] for j in range(rows_h.shape[1] - 1, -1, -1)))
-    t_lexsort = time.perf_counter() - t0
-    if not np.array_equal(d_of_row, docids_h):
-        fail("rank_rows over the index's own rows gives other docids")
-    del docids_h, rows_h, d_of_row
-    # where the host build's time goes: cProfile of a 300,000-query build
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.runcall(build_qac_index, *make_log(300_000, 100_000, args.seed),
-                 k_default=10, postings_codec="ef", device="cpu")
-    t_prof = time.perf_counter() - t0
-    top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:8]
     offs_h = idx.offsets.cpu().numpy()
     post_h = idx.postings.cpu().numpy()
     t0 = time.perf_counter()
@@ -1817,6 +2046,7 @@ def main() -> int:
     if not np.array_equal(unpack_postings(pk_bp), post_h):
         fail("bitpack postings do not round-trip")
     t_unpack = time.perf_counter() - t0
+    part("bitpack packing and its round trip")
     packs = {"ef": idx.packed, "bitpack": pk_bp}
     qidx_bp = dataclasses.replace(qidx, index=dataclasses.replace(idx, packed=pk_bp))
     dev_bytes = sum(t.numel() * t.element_size() for part in
@@ -1826,12 +2056,6 @@ def main() -> int:
         f"postings, longest list {int(np.diff(offs_h).max())}, "
         f"{dev_bytes / 2**20:.1f} MiB on the card | log {t_log:.1f} s, "
         f"host build {t_build:.1f} s (queries={args.queries}, vocab={args.vocab})")
-    say(f"[index] of the host build, rank_rows {t_rank:.2f} s (its lexsort of the "
-        f"{comps.n} x {comps.max_terms} rows {t_lexsort:.2f} s)")
-    say(f"[index] cProfile of build_qac_index at 300,000 queries, vocabulary "
-        f"100,000, on the host ({t_prof:.2f} s profiled), by own time: " + "; ".join(
-            f"{os.path.basename(fn)}:{ln}({name}) {tt:.3f} s own, {ct:.3f} s in all, "
-            f"{nc} calls" for (fn, ln, name), (_, nc, tt, ct, _) in top))
     say(f"[index] the host build includes packing the postings as ef and its "
         f"round-trip check; bitpack packing of the same lists {t_pack:.1f} s, "
         f"its round trip {t_unpack:.1f} s")
@@ -1846,6 +2070,7 @@ def main() -> int:
     if args.queries != 13_500_000 or args.vocab != 1_000_000:
         say(f"[index] CUT: {args.queries} queries, {args.vocab} vocabulary "
             "(counts only; widths unchanged)")
+    del queries, scores        # phase 9 (b) serves this build: the log is done
 
     # the main path's batch, sampled as launch/serve.py samples it
     rng = np.random.default_rng(0)
@@ -1906,7 +2131,7 @@ def main() -> int:
         case = f"B={hl.numel()} k={k} trips={trips}"
         c = hold("heap_topk", lambda: ops["heap_topk"].heap_topk(*targs, **kw),
                  lambda: heap_topk_ref(*targs, **kw), heap_equal, b_heap, 200, case,
-                 plain_reps=3)
+                 plain_reps=0)
         say(f"[kernel] heap_topk {case}: {timing(c)} ({b_heap} B; "
             f"{per_trip(c, k, trips)}) | equal")
     # the packed kernel on the same ranges, for both codecs; its plain version
@@ -1921,9 +2146,10 @@ def main() -> int:
             c = hold("heap_topk_packed",
                      lambda: ops["heap_topk_packed"].heap_topk_packed(*pargs, **kw),
                      lambda: heap_topk_ref(*targs, **kw, packed=pk), heap_equal,
-                     b_heap, 200, case, codec, plain_reps=3)
+                     b_heap, 200, case, codec, plain_reps=0)
             say(f"[kernel] heap_topk_packed[{codec}] {case}: {timing(c)} "
                 f"({b_heap} B; {per_trip(c, k, trips)}) | equal")
+    part("heap_topk and heap_topk_packed against their plain versions")
 
     # heap_topk's lanes a block: the plan's MAX_WARPS against its neighbours
     # (B=256: 256, 128, 64 and 32 blocks), raw and "ef" at (10, 12)
@@ -1940,6 +2166,7 @@ def main() -> int:
             tag = TRACE_TAGS["heap_topk" if codec is None else ("heap_topk_packed", codec)]
             sweep[warps, codec or "raw"] = kernel_device_ms(torch, run, tag, 200)[0] * 1e3
     heap_mod.MAX_WARPS = chosen
+    part("heap_topk by warps a block")
     say(f"[kernel] heap_topk B={hl.numel()} k=10 trips=12 by lanes (warps) a block, "
         f"device us/launch (the plan takes {chosen}): " + ", ".join(
             f"{w} {c} {us:.2f}" for (w, c), us in sweep.items()))
@@ -1955,16 +2182,20 @@ def main() -> int:
                     return single_term_topk_bounded_batch(
                         idx, rm, tl[:B], th[:B], 10, 12, use_kernel=True,
                         heap_kernel=heap_kernel, postings_codec=codec)
-                dev_us, per_call = call_device_us(torch, engine, 20)
+                # the per-pop route launches ~1,200 kernels a call; a trace
+                # of 20 calls takes seconds to read, so it runs 4
+                reps = 20 if heap_kernel else 4
+                dev_us, per_call = call_device_us(torch, engine, reps)
                 g = {"B": B, "codec": codec or "raw",
                      "route": "heap_topk" if heap_kernel else "per_pop_rmq",
                      "device_us": dev_us, "launches_per_call": per_call,
-                     "call_us": cuda_ms(torch, engine, 20) * 1e3}
+                     "call_us": cuda_ms(torch, engine, reps) * 1e3}
                 route_grid.append(g)
                 say(f"[route] single-term B={B} {g['codec']} {g['route']}: device "
                     f"{dev_us:.2f} us/call ({per_call:.1f} launches), wrapper "
                     f"{g['call_us']:.2f} us/call, k=10 trips=12 on {smi}")
     say("[route] " + json.dumps({"single_term_routes": route_grid}))
+    part("single-term routes")
 
     # conjunctive_scan: the first real tile of 64 multi-term queries
     multi = torch.nonzero(plen > 0)[:64, 0]
@@ -1995,7 +2226,7 @@ def main() -> int:
     c = hold("conjunctive_scan",
              lambda: ops["conjunctive_scan"].conjunctive_scan(*sargs, iters=iters),
              lambda: conjunctive_scan_ref(*sargs, iters=iters),
-             torch.equal, b_scan, 2000, case)
+             torch.equal, b_scan, 2000, case, plain_reps=3)
     say(f"[kernel] conjunctive_scan {case}: {timing(c)} ({b_scan} B) | equal")
     probed = fwd_ok[:, :, None] & (ke > ks)[:, None, :]            # [64, T, P]
     at = probe_positions(torch, idx.postings, cands, ks, ke, iters)
@@ -2007,17 +2238,18 @@ def main() -> int:
                  lambda: ops["conjunctive_scan_packed"].conjunctive_scan_packed(
                      *pargs, iters=iters),
                  lambda: conjunctive_scan_packed_ref(*pargs, iters=iters),
-                 torch.equal, b_scan, 2000, case, codec, plain_reps=3)
+                 torch.equal, b_scan, 2000, case, codec, plain_reps=0)
         say(f"[kernel] conjunctive_scan_packed[{codec}] {case}: {timing(c)} "
             f"({b_scan} B) | equal")
+    part("conjunctive_scan and conjunctive_scan_packed")
 
     # conjunctive_topk: the multi-term engine in one launch, on the batch's
     # multi-term queries (k=10, tile=128), the path's cap (4,096 tiles) first.
     # Its plain version, the host-synced tile loop, runs at max_tiles=
-    # PLAIN_TILES raw and PACKED_PLAIN_TILES packed (the packed plain scan
-    # takes up to ~0.6 s a tile; 16 tiles cross the kernel's first chunk);
-    # at the longer caps the plain version is topk_walk, held equal to the
-    # tile loop at the tile loop's cap
+    # PACKED_PLAIN_TILES (the packed plain scan takes up to ~0.8 s a tile;
+    # 9 tiles cross the kernel's first chunk; phase 7's plain route runs
+    # the raw loop at PLAIN_TILES); at the longer caps the plain version is
+    # topk_walk, held equal to the tile loop at the tile loop's cap
     mq = torch.nonzero(plen > 0)[:, 0]
     lanes = conjunctive_lanes(idx, pids[mq], plen[mq], tl[mq], th[mq])
     longest = int(torch.where(lanes[3] > lanes[2], lanes[3] - lanes[2], 0).max())
@@ -2034,7 +2266,7 @@ def main() -> int:
 
     for codec in (None, *CODECS):
         name = "conjunctive_topk" if codec is None else "conjunctive_topk_packed"
-        loop_tiles = PLAIN_TILES if codec is None else PACKED_PLAIN_TILES
+        loop_tiles = PACKED_PLAIN_TILES
         for max_tiles in dict.fromkeys((4096, PLAIN_TILES, loop_tiles)):
             kw = dict(k=10, tile=128, max_tiles=max_tiles, iters=iters)
             walk = functools.partial(topk_walk, torch, idx.postings, lanes, comps.fwd_terms,
@@ -2046,12 +2278,13 @@ def main() -> int:
                 plain, held_by = (lambda: walk(count=False)[0]), "topk_walk"
             case = f"B={mq.numel()} k=10 tile=128 max_tiles={max_tiles} iters={iters}"
             c = hold(name, lambda: topk(codec, kargs, **kw), plain, torch.equal, b_topk, 20,
-                     case, codec, plain_reps=1, trace_reps=50)
+                     case, codec, plain_reps=0, trace_reps=50)
             c["longest_lane"], c["plain"] = stop, held_by
             if held_by == "tile loop" and not torch.equal(answer, topk(codec, kargs, **kw)):
                 fail(f"{name}[{codec or 'raw'}] {case}: topk_walk disagrees with the tile loop")
             say(f"[kernel] {name}[{codec or 'raw'}] {case}: {timing(c)} ({b_topk} B; "
                 f"longest lane {stop} candidates) | equal to its plain version, {held_by}")
+    part("conjunctive_topk and conjunctive_topk_packed")
     # the cases that stress the chunking: a cap of 16 candidates (inside the
     # kernel's first chunk) at k = 1, 10, 128, with a lane that needs an
     # empty list (dead, as conjunctive_lanes marks it) and one whose empty
@@ -2137,6 +2370,7 @@ def main() -> int:
                     and c != multi_dispatches.get(route, c)):
                 fail(f"route {route} launched {name} {c} times for "
                      f"{multi_dispatches[route]} multi-term dispatches")
+    part("the routes' main and per-request-k batches")
     say(f"[path] multi-term dispatches on the main batch {multi_dispatches}: one "
         "conjunctive_topk launch each on every kernel route")
     t0 = time.perf_counter()
@@ -2166,6 +2400,8 @@ def main() -> int:
     if not ((a >= 0) & ((a < comps.n) | (a == INF))).all():
         fail("answers hold docids outside the index")
     host = (offs_h, idx.postings.cpu().numpy(), comps.fwd_terms.cpu().numpy())
+    if not ascending_lists(*host[:2]):
+        fail("a postings list is not strictly ascending")
     pids_h, plen_h = pids.cpu().numpy(), plen.cpu().numpy()
     tl_h, th_h = tl.cpu().numpy(), th.cpu().numpy()
     cap = fes["kernels"].max_tiles * fes["kernels"].tile
@@ -2182,6 +2418,7 @@ def main() -> int:
         f"prefix-equal to the kernel route's main answers; {len(checks)} answers equal "
         f"a brute-force host search")
 
+    part("the fused step and the brute-force checks")
     # where the time goes: one traced call of the same batch per route
     from torch.profiler import ProfilerActivity, profile
 
@@ -2199,6 +2436,12 @@ def main() -> int:
 
     lap(7)
 
+    # ---- 7b. the docid-striped index ----------------------------------------
+    counted["striped"] = striped_phase(torch, dev, qidx, inputs, tl, th, answers["kernels"],
+                                       per_query_us["kernels"], smi, hold, reset_counts,
+                                       read_counts)
+    lap("7b")
+
     # ---- 8. the online runtime and the cluster ------------------------------
     counted["online"], online_ms = online_phase(torch, qidx, kept, args.seed, smi,
                                                 reset_counts, read_counts)
@@ -2206,12 +2449,16 @@ def main() -> int:
 
     # ---- 9. the live index --------------------------------------------------
     fresh_drill(torch, args.seed, smi, reset_counts, read_counts)
-    counted["fresh"] = live_index_phase(torch, queries, scores, kept, sc_kept, args.seed,
-                                        smi, online_ms, reset_counts, read_counts)
-    del queries, scores
+    part("the drill")
+    counted["fresh"] = live_index_phase(torch, qidx, kept, sc_kept, args.seed, smi,
+                                        online_ms, reset_counts, read_counts)
     lap(9)
 
-    # ---- 10. kernels line ---------------------------------------------------
+    # ---- 10. the port's launcher ---------------------------------------------
+    launcher_phase(smi)
+    lap(10)
+
+    # ---- 11. kernels line ---------------------------------------------------
     launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
     say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []

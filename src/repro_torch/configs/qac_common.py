@@ -4,13 +4,21 @@ Index sizing mirrors Table 2 EBAY x a production-year growth factor: 10M
 completions, 1M unique terms, ~3.1 postings/completion. The JAX package's
 ``QACArch`` also lowers a docid-striped index onto a TPU mesh
 (``index_specs``, ``lowerable``); those parts wait for the port's
-distribution work. What the serving stack reads is here: the widths,
-``k``, the engine routes (``frontend``), and the online runtime's,
-cluster's and live index's knobs.
+distribution work (ROADMAP Queue A item 6). What the serving stack reads is
+here: the widths, ``k``, the engine routes (``frontend``), the online
+runtime's, cluster's, live index's and observability's knobs, and the
+arch's cells over ``QAC_SHAPES``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+from .base import Cell
+
+QAC_SHAPES = {
+    "serve_online": dict(kind="serve", batch=4_096),
+    "serve_bulk": dict(kind="serve", batch=65_536),
+}
 
 
 @dataclasses.dataclass
@@ -62,6 +70,11 @@ class QACArch:
     # by FreshnessConfig.__post_init__).
     freshness_delta_capacity: int = 4096
     freshness_swap_threshold: int = 1024
+    # observability (obs/): trace 1/N of requests and evaluate the SLO burn
+    # against the 50 ms interactive objective at three nines
+    obs_trace_sample_every: int = 16
+    obs_slo_target_us: float = 50_000.0
+    obs_slo_objective: float = 0.999
 
     family = "qac"
 
@@ -115,3 +128,18 @@ class QACArch:
             delta_capacity=self.freshness_delta_capacity,
             swap_threshold=self.freshness_swap_threshold,
         )
+
+    def obs_config(self):
+        """The arch's observability knobs as an ``ObsConfig``: the tracer's
+        sampling stride and the SLO the burn-rate monitor evaluates."""
+        from ..obs import ObsConfig
+
+        return ObsConfig(
+            trace_sample_every=self.obs_trace_sample_every,
+            slo_target_us=self.obs_slo_target_us,
+            slo_objective=self.obs_slo_objective,
+        )
+
+    def cells(self):
+        return [Cell(self.arch_id, s, spec["kind"])
+                for s, spec in QAC_SHAPES.items()]

@@ -11,6 +11,11 @@ builder. Keys are ``"<component>.<field>"`` for arrays and meta alike, e.g.
 arrays, ``"index.packed.n_post"`` and ``"index.packed.codec"`` (a string)
 among the meta; an index given none of them gets ``packed=None``.
 
+``striped_index_from_arrays`` does the same for a docid-striped index: the
+JAX package's ``StripedQACIndex`` leaves as numpy arrays, keyed by field
+name (``"postings"``, ``"rmq_ib"``, ``"pp_words"``), and its meta fields
+(``"n_stripes"``, ``"pp_codec"``), become the port's ``StripedQACIndex``.
+
 ``recsys_params_from_arrays`` does the same for a recsys model: the JAX
 model's parameters as numpy arrays, keyed by their tree path joined with
 ``.`` (``"tables"``, ``"mlp.0.w"``, ``"blocks.0.ln1"``), become the port
@@ -37,6 +42,7 @@ from .core.completions import Completions
 from .core.dictionary import TermDictionary
 from .core.inverted_index import InvertedIndex
 from .core.rmq import RangeMin
+from .core.striped import StripedQACIndex
 from .models.recsys import RecsysConfig
 from .models.transformer import TransformerConfig, TransformerLM
 
@@ -77,6 +83,27 @@ def qac_index_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         raise KeyError(f"unknown index fields {sorted(extra)}")
     return QACIndex(**parts, k_default=int(meta["k_default"]))
 
+
+def striped_index_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
+                              device=None) -> StripedQACIndex:
+    """Build a ``StripedQACIndex`` on ``device`` (default: the card) from
+    numpy arrays and meta fields; the packed fields (``pp_*``) may be
+    absent together, every other field must be given exactly once."""
+    device = resolve_device(device)
+    fields, optional = {}, {"pp_words", "pp_base", "pp_meta", "pp_wordoff", "pp_codec"}
+    for f in dataclasses.fields(StripedQACIndex):
+        if f.name in arrays:
+            fields[f.name] = torch.tensor(np.ascontiguousarray(arrays[f.name]),
+                                          device=device)
+        elif f.name in meta:
+            v = meta[f.name]
+            fields[f.name] = v if v is None or isinstance(v, str) else int(v)
+        elif f.name not in optional:
+            raise KeyError(f"missing striped index field {f.name!r}")
+    extra = (set(arrays) | set(meta)) - set(fields)
+    if extra:
+        raise KeyError(f"unknown striped index fields {sorted(extra)}")
+    return StripedQACIndex(**fields)
 
 
 def _load_arrays(model: torch.nn.Module, arrays: dict[str, np.ndarray], what: str):

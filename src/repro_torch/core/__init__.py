@@ -1,7 +1,7 @@
 from .types import INF_DOCID, MAX_TERMS, MAX_TERM_CHARS, CHARS_PER_CHUNK
-from .builder import (QACIndex, build_corpus, build_qac_index, parse_queries,
-                      tokenize)
+from .builder import (CorpusStats, QACIndex, build_corpus, build_qac_index,
+                      corpus_stats, parse_queries, tokenize)
 
 __all__ = ["INF_DOCID", "MAX_TERMS", "MAX_TERM_CHARS", "CHARS_PER_CHUNK",
-           "QACIndex", "build_corpus", "build_qac_index", "parse_queries",
-           "tokenize"]
+           "CorpusStats", "QACIndex", "build_corpus", "build_qac_index",
+           "corpus_stats", "parse_queries", "tokenize"]

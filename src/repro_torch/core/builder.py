@@ -35,6 +35,16 @@ class QACIndex:
         return self.index.postings.device
 
 
+@dataclasses.dataclass
+class CorpusStats:
+    n_queries: int
+    n_unique_terms: int
+    avg_chars_per_term: float
+    avg_queries_per_term: float
+    avg_terms_per_query: float
+    uncompressed_bytes: int
+
+
 def tokenize(s: str) -> list[str]:
     return s.split()      # splits on any whitespace run, drops empty tokens
 
@@ -51,6 +61,27 @@ def _token_counts(keys: list[str]) -> np.ndarray:
     return np.where(empty, 0, spaces + 1)
 
 
+def _normalized(queries: Sequence[str]) -> bool:
+    """Whether every query already is its key, ``" ".join(q.split())``: a
+    ``str``, ASCII, holding no newline and none of ``str.split``'s other
+    whitespace (9-13, 28-31) but single spaces between tokens. Read from
+    the bytes of the queries joined by newlines."""
+    if not queries:
+        return True
+    if set(map(type, queries)) != {str}:
+        return False
+    b = np.frombuffer("\n".join(queries).encode("utf-8"), dtype=np.uint8)
+    n_nl = np.count_nonzero(b == 10)
+    if (n_nl != len(queries) - 1 or (b >= 128).any() or n_nl != np.count_nonzero(
+            (b >= 9) & (b <= 13)) or ((b >= 28) & (b <= 31)).any()):
+        return False
+    nl = np.array([10], dtype=np.uint8)
+    framed = np.concatenate((nl, b, nl))
+    sp = np.flatnonzero(framed == 32)
+    side = np.concatenate((framed[sp - 1], framed[sp + 1]))
+    return not ((side == 10) | (side == 32)).any()
+
+
 def build_corpus(queries: Sequence[str], scores: Sequence[float],
                  max_terms: int = MAX_TERMS,
                  max_term_chars: int = MAX_TERM_CHARS, *,
@@ -59,24 +90,33 @@ def build_corpus(queries: Sequence[str], scores: Sequence[float],
 
     Returns (dictionary, term_rows int32[N,M], scores float64[N], kept_strings).
     Each log query is tokenized once, into its key (its tokens joined by
-    single spaces). A key's score is the max over its log entries, NaN
-    entries ignored (-inf when all are NaN). No token holds whitespace, so
-    one split of all kept keys joined gives their tokens in order, and numpy
-    scatters their 1-based lexicographic ids (ranks in ``sorted``, i.e. by
-    code point) into the rows.
+    single spaces), unless the log is already normalized (``_normalized``,
+    as a rebuild's ``kept`` is). A key's score is the max over its log
+    entries, NaN entries ignored (-inf when all are NaN). No token holds
+    whitespace, so one split of all kept keys joined gives their tokens in
+    order, and numpy scatters their 1-based lexicographic ids (ranks in
+    ``sorted``, i.e. by code point) into the rows.
     """
-    keys = [" ".join(q.split()) for q in queries]     # the one tokenization
+    keys = (list(queries) if _normalized(queries)
+            else [" ".join(q.split()) for q in queries])   # the one tokenization
     sc = np.asarray(scores, dtype=np.float64).reshape(-1)
     sc = np.where(np.isnan(sc), -np.inf, sc)
-    # entries by key, each key's by descending score (a stable sort of a
-    # stable sort), so each key's first entry holds its score: the first of
-    # its equal maxima in log order
-    order = np.asarray(sorted(np.argsort(-sc, kind="stable").tolist(),
-                              key=keys.__getitem__), dtype=np.int64)
-    by_key = np.array(keys, dtype=object)[order]
+    # each entry's key rank, from a stable sort by key (linear when the log
+    # is already in key order, as a rebuild's is)
+    keys_arr = np.array(keys, dtype=object)
+    by_str = np.asarray(sorted(range(len(keys)), key=keys.__getitem__), dtype=np.int64)
+    s_keys = keys_arr[by_str]
+    new = np.ones(len(keys), dtype=bool)
+    new[1:] = s_keys[1:] != s_keys[:-1]
+    rank = np.empty(len(keys), dtype=np.int64)
+    rank[by_str] = np.cumsum(new) - 1
+    # entries by key, each key's by descending score, ties in log order (a
+    # stable lexsort), so each key's first entry holds its score: the first
+    # of its equal maxima in log order
+    order = np.lexsort((-sc, rank))
     first = np.ones(len(keys), dtype=bool)
-    first[1:] = by_key[1:] != by_key[:-1]
-    kept, sc = by_key[first], sc[order[first]]
+    first[1:] = rank[order[1:]] != rank[order[:-1]]
+    kept, sc = keys_arr[order[first]], sc[order[first]]
     n_tok = _token_counts(kept.tolist())
     ok = (n_tok > 0) & (n_tok <= max_terms)   # no empty key, none too long
     kept, sc, n_tok = kept[ok].tolist(), sc[ok], n_tok[ok]
@@ -125,6 +165,20 @@ def build_qac_index(queries: Sequence[str], scores: Sequence[float],
         k_default=k_default,
     )
     return qidx, kept, sc
+
+
+def corpus_stats(kept: Sequence[str]) -> CorpusStats:
+    """The paper's Table 2 columns of a deduplicated corpus."""
+    terms = [t for q in kept for t in tokenize(q)]
+    uniq = set(terms)
+    return CorpusStats(
+        n_queries=len(kept),
+        n_unique_terms=len(uniq),
+        avg_chars_per_term=float(np.mean([len(t) for t in uniq])) if uniq else 0.0,
+        avg_queries_per_term=len(terms) / max(len(uniq), 1),
+        avg_terms_per_query=len(terms) / max(len(kept), 1),
+        uncompressed_bytes=sum(len(q) + 1 for q in kept),
+    )
 
 
 def parse_queries(dictionary: TermDictionary, raw_queries: Sequence[str],

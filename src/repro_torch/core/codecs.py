@@ -28,9 +28,12 @@ Stream layout (bit offsets little-endian within int32 words):
   strictly smaller; ``codec="bitpack"`` disables it, so the decoder can skip
   the bitmap select.
 
-The space-study codecs of the JAX module (``ef_encode``, ``pef_bits``,
-``vbyte_*``, ``bitpack_bits``, ``index_bpi``) serve its compression bench,
-not the serving path, and are not ported here.
+The space-study codecs (the paper's Table 4: ``BitWriter``/``BitReader``,
+``EFList``, ``ef_encode``/``ef_decode``, ``pef_bits``, ``vbyte_encode``/
+``vbyte_decode``, ``bitpack_bits``, ``index_bpi``) are host numpy, copied
+from the JAX package, and lie on no serving path: they report the bits per
+posting of whole-list codecs (EF, partitioned EF, VByte, delta + fixed-width
+bitpacking) for a space study.
 
 torch's ``>>`` on int32 is arithmetic and its int32 multiply is not the
 JAX shift/wrap arithmetic this transcribes, so the plain decoder works in
@@ -40,11 +43,14 @@ product back to 32 bits.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+_U64 = np.uint64
+_FULL64 = (1 << 64) - 1
 
 PACK_BLOCK = 128          # postings per block
 EF_BITMAP_WORDS = 8       # 256-bit upper-bits bitmap per EF block
@@ -55,6 +61,279 @@ CODECS = ("ef", "bitpack")
 def _bit_length(x: np.ndarray) -> np.ndarray:
     """Vectorized int bit_length; exact for 0 <= x < 2**53."""
     return np.frexp(np.asarray(x, dtype=np.float64))[1].astype(np.int64)
+
+
+# ---------------------------------------------------------------- bit I/O
+class BitWriter:
+    """Append-only little-endian bit stream over uint64 words.
+
+    Word-level numpy throughout: ``write``/``unary`` are O(bits/64) scalar
+    ops, ``write_many``/``unary_many`` are fully vectorized (one
+    ``bitwise_or.at`` scatter per word touched) — the per-bit Python loops
+    this replaces dominated both index build and ``bench_compression``.
+    """
+
+    def __init__(self):
+        self._words = np.zeros(4, dtype=_U64)
+        self._nbits = 0
+
+    def _reserve(self, nbits: int) -> None:
+        need = (nbits + 63) >> 6
+        if need > len(self._words):
+            grown = np.zeros(max(need, 2 * len(self._words)), dtype=_U64)
+            grown[: len(self._words)] = self._words
+            self._words = grown
+
+    def write(self, value: int, n_bits: int) -> None:
+        if n_bits <= 0:
+            return
+        v = int(value) & ((1 << n_bits) - 1)
+        pos = self._nbits
+        self._reserve(pos + n_bits)
+        self._nbits = pos + n_bits
+        w, b = divmod(pos, 64)
+        while True:
+            self._words[w] |= _U64((v << b) & _FULL64)
+            take = 64 - b
+            if n_bits <= take:
+                return
+            v >>= take
+            n_bits -= take
+            w += 1
+            b = 0
+
+    def write_many(self, values: np.ndarray, n_bits: int) -> None:
+        """Append ``len(values)`` fields of ``n_bits`` bits each."""
+        vals = np.asarray(values).astype(_U64)
+        n = len(vals)
+        if n == 0 or n_bits == 0:
+            return
+        assert 0 < n_bits <= 64
+        if n_bits < 64:
+            vals = vals & _U64((1 << n_bits) - 1)
+        pos0 = self._nbits
+        self._reserve(pos0 + n * n_bits)
+        pos = _U64(pos0) + np.arange(n, dtype=_U64) * _U64(n_bits)
+        w = (pos >> _U64(6)).astype(np.int64)
+        b = pos & _U64(63)
+        np.bitwise_or.at(self._words, w, vals << b)
+        spill = (b + _U64(n_bits)) > _U64(64)
+        if spill.any():
+            bs = b[spill]
+            np.bitwise_or.at(self._words, w[spill] + 1,
+                             vals[spill] >> (_U64(64) - bs))
+        self._nbits = pos0 + n * n_bits
+
+    def unary(self, n: int) -> None:
+        self.write(0, n)
+        self.write(1, 1)
+
+    def unary_many(self, gaps: np.ndarray) -> None:
+        """Append one unary code (``gap`` zeros then a one) per entry."""
+        g = np.asarray(gaps, dtype=np.int64)
+        if len(g) == 0:
+            return
+        stops = self._nbits + np.cumsum(g + 1) - 1
+        end = int(stops[-1]) + 1
+        self._reserve(end)
+        np.bitwise_or.at(self._words, (stops >> 6).astype(np.int64),
+                         _U64(1) << (stops.astype(_U64) & _U64(63)))
+        self._nbits = end
+
+    def pad_to(self, n_bits: int) -> None:
+        """Advance the cursor to an absolute bit position (zero fill)."""
+        assert n_bits >= self._nbits
+        self._reserve(n_bits)
+        self._nbits = n_bits
+
+    def n_bits(self) -> int:
+        return self._nbits
+
+    def array(self) -> np.ndarray:
+        return self._words[: max(1, (self._nbits + 63) >> 6)].copy()
+
+
+class BitReader:
+    """Cursor over a BitWriter stream; same word-level discipline."""
+
+    def __init__(self, words: np.ndarray):
+        self.words = np.asarray(words, dtype=_U64)
+        self.pos = 0
+
+    def read(self, n_bits: int) -> int:
+        out = 0
+        got = 0
+        while got < n_bits:
+            w, b = divmod(self.pos, 64)
+            take = min(64 - b, n_bits - got)
+            out |= ((int(self.words[w]) >> b) & ((1 << take) - 1)) << got
+            got += take
+            self.pos += take
+        return out
+
+    def read_many(self, count: int, n_bits: int) -> np.ndarray:
+        """Read ``count`` fields of ``n_bits`` bits -> int64[count]."""
+        if count == 0 or n_bits == 0:
+            return np.zeros(count, dtype=np.int64)
+        assert 0 < n_bits <= 63
+        L = len(self.words)
+        pos = _U64(self.pos) + np.arange(count, dtype=_U64) * _U64(n_bits)
+        w = (pos >> _U64(6)).astype(np.int64)
+        b = pos & _U64(63)
+        lo = self.words[w] >> b
+        w1 = np.minimum(w + 1, L - 1)
+        sh = (_U64(64) - b) & _U64(63)
+        hi = np.where(b == 0, _U64(0), self.words[w1] << sh)
+        out = (lo | hi) & _U64((1 << n_bits) - 1)
+        self.pos += count * n_bits
+        return out.astype(np.int64)
+
+    def unary(self) -> int:
+        n = 0
+        while True:
+            w, b = divmod(self.pos, 64)
+            bit = (int(self.words[w]) >> b) & 1
+            self.pos += 1
+            if bit:
+                return n
+            n += 1
+
+    def unary_many(self, count: int) -> np.ndarray:
+        """Decode ``count`` unary codes -> int64[count] (the zero runs)."""
+        if count == 0:
+            return np.zeros(0, dtype=np.int64)
+        w0 = self.pos >> 6
+        tail = self.words[w0:]
+        if not np.little_endian:  # pragma: no cover - scalar fallback
+            return np.array([self.unary() for _ in range(count)], np.int64)
+        bits = np.unpackbits(tail.view(np.uint8), bitorder="little")
+        bits = bits[self.pos - (w0 << 6):]
+        ones = np.flatnonzero(bits)[:count]
+        assert len(ones) == count, "unary stream truncated"
+        self.pos += int(ones[-1]) + 1
+        return np.diff(ones, prepend=np.int64(-1)) - 1
+
+
+# ---------------------------------------------------------------- Elias-Fano
+@dataclasses.dataclass
+class EFList:
+    words: np.ndarray
+    n: int
+    universe: int
+    low_bits: int
+
+    def bits(self) -> int:
+        # canonical EF size: n*ceil(log2(U/n)) + 2n (+ o(n) select, excluded
+        # consistently for all codecs)
+        return len(self.words) * 64
+
+
+def ef_encode(values: np.ndarray, universe: int | None = None) -> EFList:
+    v = np.asarray(values, dtype=np.int64)
+    assert (np.diff(v) >= 0).all(), "EF needs a sorted sequence"
+    n = len(v)
+    u = int(universe if universe is not None else (v[-1] + 1 if n else 1))
+    l = max(0, int(math.floor(math.log2(max(u, 1) / max(n, 1))))) if n else 0
+    w = BitWriter()
+    if n:
+        # low bits, packed; then high bits as unary-coded gaps
+        w.write_many(v & ((1 << l) - 1), l)
+        w.unary_many(np.diff(v >> l, prepend=np.int64(0)))
+    return EFList(words=w.array(), n=n, universe=u, low_bits=l)
+
+
+def ef_decode(ef: EFList) -> np.ndarray:
+    r = BitReader(ef.words)
+    lows = r.read_many(ef.n, ef.low_bits)
+    high = np.cumsum(r.unary_many(ef.n)) if ef.n else lows
+    return (high << ef.low_bits) | lows
+
+
+def pef_bits(values: np.ndarray, partition: int = 128) -> int:
+    """Uniformly-partitioned EF (Ottaviano-Venturini, uniform variant)."""
+    v = np.asarray(values, dtype=np.int64)
+    total = 0
+    for i in range(0, len(v), partition):
+        chunk = v[i : i + partition]
+        base = int(chunk[0])
+        total += 32  # per-partition header (base + size)
+        total += ef_encode(chunk - base).bits()
+    return total
+
+
+# ---------------------------------------------------------------- VByte
+def vbyte_encode(values: np.ndarray) -> bytes:
+    v = np.asarray(values, dtype=np.int64)
+    deltas = np.concatenate([[v[0] + 1], np.diff(v)]) if len(v) else v
+    out = bytearray()
+    for d in deltas:
+        d = int(d)
+        while True:
+            b = d & 0x7F
+            d >>= 7
+            if d:
+                out.append(b)
+            else:
+                out.append(b | 0x80)
+                break
+    return bytes(out)
+
+
+def vbyte_decode(data: bytes, n: int) -> np.ndarray:
+    out = np.empty(n, dtype=np.int64)
+    pos = 0
+    cur = -1
+    for i in range(n):
+        d = 0
+        shift = 0
+        while True:
+            b = data[pos]
+            pos += 1
+            d |= (b & 0x7F) << shift
+            shift += 7
+            if b & 0x80:
+                break
+        cur += d
+        out[i] = cur
+    return out
+
+
+# ---------------------------------------------------------------- bitpacked deltas
+def bitpack_bits(values: np.ndarray, block: int = 128) -> int:
+    """Delta + per-block fixed-width packing (FastPFor-lite), size only."""
+    v = np.asarray(values, dtype=np.int64)
+    if not len(v):
+        return 0
+    gaps = np.concatenate([[v[0] + 1], np.diff(v)])
+    total = 0
+    for i in range(0, len(gaps), block):
+        chunk = gaps[i : i + block]
+        width = max(1, int(_bit_length(chunk.max())))
+        total += 8 + width * len(chunk)   # 8-bit width header
+    return total
+
+
+def index_bpi(lists: list[np.ndarray], method: str) -> float:
+    """Average bits per posting over an inverted index."""
+    bits = 0
+    n = 0
+    for lst in lists:
+        if len(lst) == 0:
+            continue
+        n += len(lst)
+        if method == "ef":
+            bits += ef_encode(lst).bits()
+        elif method == "pef":
+            bits += pef_bits(lst)
+        elif method == "vbyte":
+            bits += len(vbyte_encode(lst)) * 8
+        elif method == "bitpack":
+            bits += bitpack_bits(lst)
+        elif method == "raw32":
+            bits += 32 * len(lst)
+        else:
+            raise ValueError(method)
+    return bits / max(n, 1)
 
 
 # ------------------------------------------------- device block format

@@ -63,6 +63,12 @@ class Completions:
             return as32(0), as32(0)
         return p, q
 
+    @property
+    def fwd_stride(self) -> int:
+        """Docid d's forward row is row d // fwd_stride: 1 here, the stripe
+        count in a docid stripe's ``LocalFwd`` (``core/striped.py``)."""
+        return 1
+
     def extract(self, docid: torch.Tensor):
         """docid[...] -> (term_ids int32[..., M], n_terms[...]).
         INF or otherwise invalid docids give zeros."""

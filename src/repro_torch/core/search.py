@@ -331,7 +331,9 @@ def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
     a host sync a step. Both give the same answers. An empty list that a
     lane needs kills the lane. ``probe_iters`` caps the binary-search depth
     (callers that know the longest probed list pass its bound); 0 uses
-    ``log2(n_postings) + 1``.
+    ``log2(n_postings) + 1``. ``completions`` is the index's
+    ``Completions`` or a docid stripe's ``LocalFwd``: its ``fwd_stride`` (1,
+    or the stripe count) says which forward row holds a docid.
     """
     from ..kernels.intersect import ops, ref
 
@@ -339,7 +341,8 @@ def conjunctive_multi_batch(index: InvertedIndex, completions, prefix_ids,
     n_post = index.postings.shape[0]
     iters = probe_iters or min(31, max(1, n_post.bit_length()))
     lanes = conjunctive_lanes(index, prefix_ids, prefix_len, term_lo, term_hi)
-    kw = dict(k=k, tile=tile, max_tiles=max_tiles, iters=iters)
+    kw = dict(k=k, tile=tile, max_tiles=max_tiles, iters=iters,
+              fwd_stride=completions.fwd_stride)
     if packed is None:
         topk = ops.conjunctive_topk if use_kernel else ref.conjunctive_topk_ref
         return topk(index.postings, *lanes, completions.fwd_terms, term_lo,

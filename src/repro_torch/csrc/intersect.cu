@@ -18,13 +18,19 @@
 // that the caller had gathered into VMEM, which capped the longest list at
 // a power-of-two pad; the packed one pinned the whole compressed index in
 // VMEM and searched spans. Here there is no gather and no list-length bound.
+// It reads an unstriped forward index (row d = docid d): it is held against
+// its plain version off the serving path and takes no stride.
 //
 // conjunctive_topk_kernel: the multi-term engine's whole candidate loop in
 // one launch. Replaces those two kernels together with the lax.while_loop
 // of the JAX package's core/search.py::conjunctive_multi_batch around them
 // (one tile a step). A lane's answer is the first k hits, in driver-list
 // order, among the first min(d_len, cap) candidates of its driver list
-// (cap = max_tiles * tile), INF-padded; a dead lane's is all INF. The tile
+// (cap = max_tiles * tile), INF-padded; a dead lane's is all INF. Its
+// forward rows may be a docid stripe's (fwd_stride = the stripe count, row
+// d / stride), so the striped index's stripes serve through it; the JAX
+// package's Pallas kernel never reads rows, LocalFwd.extract gathers them
+// before it. The tile
 // width enters the answer only through the cap, so one block per lane walks
 // its candidates in chunks of kTopkThreads * kTopkPerThread and is
 // bit-identical to the tile loop: each thread probes kTopkPerThread
@@ -50,12 +56,25 @@
 namespace {
 
 // The forward-index test: does the candidate's row hold a term in
-// [tlo, thi)? A docid outside [0, n_docs) reads a row of zeros.
+// [tlo, thi)? With stride 1 row d is docid d, and a docid outside
+// [0, n_rows) reads a row of zeros (Completions.extract). A docid stripe's
+// rows hold every stride-th docid (core/striped.py::LocalFwd.extract): row
+// d / stride, and a docid outside [0, n_rows * stride) reads zeros. The
+// branch on the stride is uniform over a launch, so the unstriped path pays
+// no integer divide.
 __device__ __forceinline__ bool fwd_row_hits(const int* __restrict__ fwd_terms,
-                                             int n_docs, int M, int cand,
-                                             int tlo, int thi) {
-  if (cand < 0 || cand >= n_docs) return M > 0 && tlo <= 0 && 0 < thi;
-  const int* row = fwd_terms + (size_t)cand * M;
+                                             int n_rows, int stride, int M,
+                                             int cand, int tlo, int thi) {
+  int r = cand;
+  if (stride == 1) {
+    if (cand < 0 || cand >= n_rows) return M > 0 && tlo <= 0 && 0 < thi;
+  } else {
+    if (cand < 0 || static_cast<long long>(cand) >=
+                        static_cast<long long>(n_rows) * stride)
+      return M > 0 && tlo <= 0 && 0 < thi;
+    r = cand / stride;
+  }
+  const int* row = fwd_terms + (size_t)r * M;
   bool ok = false;
   for (int m = 0; m < M; ++m) {
     const int v = row[m];
@@ -91,7 +110,7 @@ __device__ __forceinline__ bool conjunctive_hit(
     int cand, const int* starts, const int* ends, int P, Lookup lookup,
     const int* __restrict__ fwd_terms, int n_docs, int M, int tlo, int thi,
     int iters) {
-  return cand != QAC_INF && fwd_row_hits(fwd_terms, n_docs, M, cand, tlo, thi)
+  return cand != QAC_INF && fwd_row_hits(fwd_terms, n_docs, 1, M, cand, tlo, thi)
          && spans_hold(starts, ends, P, lookup, cand, iters);
 }
 
@@ -129,7 +148,7 @@ __global__ void __launch_bounds__(kTopkThreads) conjunctive_topk_kernel(
     const int* __restrict__ d_start, const int* __restrict__ d_end,
     const int* __restrict__ starts, const int* __restrict__ ends,
     const int* __restrict__ dead, Lookup lookup,
-    const int* __restrict__ fwd_terms, int n_docs, int M,
+    const int* __restrict__ fwd_terms, int n_docs, int fwd_stride, int M,
     const int* __restrict__ term_lo, const int* __restrict__ term_hi,
     int* __restrict__ out, int k, long long cap, int P, int iters) {
   extern __shared__ int span[];   // [2P]: the lane's starts, then its ends
@@ -161,7 +180,8 @@ __global__ void __launch_bounds__(kTopkThreads) conjunctive_topk_kernel(
 #pragma unroll
       for (int r = 0; r < kTopkPerThread; ++r)
         hit[r] = cand[r] != QAC_INF &&
-                 fwd_row_hits(fwd_terms, n_docs, M, cand[r], tlo, thi);
+                 fwd_row_hits(fwd_terms, n_docs, fwd_stride, M, cand[r], tlo,
+                              thi);
 #pragma unroll
       for (int r = 0; r < kTopkPerThread; ++r) {
         hit[r] = hit[r] && spans_hold(span, span + P, P, lookup, cand[r], iters);
@@ -203,13 +223,13 @@ template <class Lookup>
 int launch_topk(const int* postings, int n_post, const int* d_start,
                 const int* d_end, const int* starts, const int* ends,
                 const int* dead, Lookup lookup, const int* fwd_terms,
-                int n_docs, int M, const int* term_lo, const int* term_hi,
-                int* out, int B, int k, long long cap, int P, int iters,
-                void* stream) {
+                int n_docs, int fwd_stride, int M, const int* term_lo,
+                const int* term_hi, int* out, int B, int k, long long cap,
+                int P, int iters, void* stream) {
   conjunctive_topk_kernel<Lookup><<<B, kTopkThreads, 2 * P * sizeof(int),
                                     static_cast<cudaStream_t>(stream)>>>(
       postings, n_post, d_start, d_end, starts, ends, dead, lookup, fwd_terms,
-      n_docs, M, term_lo, term_hi, out, k, cap, P, iters);
+      n_docs, fwd_stride, M, term_lo, term_hi, out, k, cap, P, iters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,26 +262,29 @@ extern "C" __attribute__((visibility("default"))) int conjunctive_scan_packed_la
 extern "C" __attribute__((visibility("default"))) int conjunctive_topk_launch(
     const int* postings, int n_post, const int* d_start, const int* d_end,
     const int* starts, const int* ends, const int* dead, const int* fwd_terms,
-    int n_docs, int M, const int* term_lo, const int* term_hi, int* out, int B,
-    int k, long long cap, int P, int iters, void* stream) {
+    int n_docs, int fwd_stride, int M, const int* term_lo, const int* term_hi,
+    int* out, int B, int k, long long cap, int P, int iters, void* stream) {
   return launch_topk(postings, n_post, d_start, d_end, starts, ends, dead,
-                     qac::RawLookup{postings, n_post}, fwd_terms, n_docs, M,
-                     term_lo, term_hi, out, B, k, cap, P, iters, stream);
+                     qac::RawLookup{postings, n_post}, fwd_terms, n_docs,
+                     fwd_stride, M, term_lo, term_hi, out, B, k, cap, P, iters,
+                     stream);
 }
 
 extern "C" __attribute__((visibility("default"))) int conjunctive_topk_packed_launch(
     const int* postings, int n_post, const int* d_start, const int* d_end,
     const int* starts, const int* ends, const int* dead, const int* words,
     const int* base, const int* meta, const int* wordoff, int W, int ef,
-    const int* fwd_terms, int n_docs, int M, const int* term_lo,
-    const int* term_hi, int* out, int B, int k, long long cap, int P, int iters,
-    void* stream) {
+    const int* fwd_terms, int n_docs, int fwd_stride, int M,
+    const int* term_lo, const int* term_hi, int* out, int B, int k,
+    long long cap, int P, int iters, void* stream) {
   const qac::PackedView v{words, base, meta, wordoff, W, n_post};
   if (ef)
     return launch_topk(postings, n_post, d_start, d_end, starts, ends, dead,
-                       qac::PackedLookup<true>{v}, fwd_terms, n_docs, M,
-                       term_lo, term_hi, out, B, k, cap, P, iters, stream);
+                       qac::PackedLookup<true>{v}, fwd_terms, n_docs,
+                       fwd_stride, M, term_lo, term_hi, out, B, k, cap, P,
+                       iters, stream);
   return launch_topk(postings, n_post, d_start, d_end, starts, ends, dead,
-                     qac::PackedLookup<false>{v}, fwd_terms, n_docs, M,
-                     term_lo, term_hi, out, B, k, cap, P, iters, stream);
+                     qac::PackedLookup<false>{v}, fwd_terms, n_docs,
+                     fwd_stride, M, term_lo, term_hi, out, B, k, cap, P, iters,
+                     stream);
 }

@@ -3,9 +3,11 @@
 ``conjunctive_scan`` probes one [B, T] tile of candidates over raw
 postings, ``conjunctive_scan_packed`` over a ``PackedPostings`` (the
 kernel's "ef" or "bitpack" instantiation, picked by ``packed.has_ef``): one
-thread per (row, candidate). ``conjunctive_topk`` and
+thread per (row, candidate); they read an unstriped forward index, are off
+every serving path and take no stride. ``conjunctive_topk`` and
 ``conjunctive_topk_packed`` run the multi-term engine's whole candidate
-loop in one launch (one block per lane) and return its first-k docids. On
+loop in one launch (one block per lane) and return its first-k docids;
+``fwd_stride`` S > 1 reads a docid stripe's forward rows (row d // S). On
 CUDA tensors each launches its kernel in ``csrc/intersect.cu``; on CPU
 tensors each runs its plain version in ``ref``. ``launches``,
 ``packed_launches``, ``topk_launches`` and ``topk_packed_launches`` count
@@ -33,7 +35,7 @@ _PACKED_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] \
     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
 _TOPK_HEAD = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-_TOPK_TAIL = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 \
+_TOPK_TAIL = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 \
     + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 \
     + [ctypes.c_void_p]
 _TOPK_ARGS = _TOPK_HEAD + _TOPK_TAIL
@@ -128,15 +130,17 @@ def _check_topk(postings, d_start, d_end, starts, ends, dead, fwd_terms,
     return d_start, d_end, starts, ends, dead, term_lo, term_hi
 
 
-def _topk_launch(fn_name, argtypes, postings, lanes, middle, fwd_terms, out,
-                 cap, iters):
+def _topk_launch(fn_name, argtypes, postings, lanes, middle, fwd_terms,
+                 fwd_stride, out, cap, iters):
     d_start, d_end, starts, ends, dead, term_lo, term_hi = lanes
     B, P = starts.shape
+    if fwd_stride < 1:
+        raise ValueError(f"conjunctive_topk: fwd_stride must be >= 1, got {fwd_stride}")
     fn = backend.load("intersect", fn_name, argtypes)
     err = fn(backend.ptr(postings), postings.shape[0], backend.ptr(d_start),
              backend.ptr(d_end), backend.ptr(starts), backend.ptr(ends),
              backend.ptr(dead), *middle, backend.ptr(fwd_terms),
-             fwd_terms.shape[0], fwd_terms.shape[1], backend.ptr(term_lo),
+             fwd_terms.shape[0], fwd_stride, fwd_terms.shape[1], backend.ptr(term_lo),
              backend.ptr(term_hi), backend.ptr(out), B, out.shape[1], cap, P,
              iters, backend.stream(d_start.device))
     backend.check("intersect", err)
@@ -144,15 +148,17 @@ def _topk_launch(fn_name, argtypes, postings, lanes, middle, fwd_terms, out,
 
 def conjunctive_topk(postings, d_start, d_end, starts, ends, dead, fwd_terms,
                      term_lo, term_hi, *, k: int, tile: int, max_tiles: int,
-                     iters: int):
+                     iters: int, fwd_stride: int = 1):
     """int32[B, k]: each lane's first k conjunctive hits among the first
     ``max_tiles * tile`` candidates of its driver list, in one launch; see
-    ``ref.conjunctive_topk_ref``."""
+    ``ref.conjunctive_topk_ref`` (``fwd_stride``: docid d's forward row is
+    row d // fwd_stride, a docid stripe's rows)."""
     global topk_launches
     if not d_start.is_cuda:
         return conjunctive_topk_ref(postings, d_start, d_end, starts, ends, dead,
                                     fwd_terms, term_lo, term_hi, k=k, tile=tile,
-                                    max_tiles=max_tiles, iters=iters)
+                                    max_tiles=max_tiles, iters=iters,
+                                    fwd_stride=fwd_stride)
     lanes = _check_topk(postings, d_start, d_end, starts, ends, dead, fwd_terms,
                         term_lo, term_hi)
     out = torch.empty((lanes[0].shape[0], k), dtype=torch.int32,
@@ -160,14 +166,14 @@ def conjunctive_topk(postings, d_start, d_end, starts, ends, dead, fwd_terms,
     if out.numel() == 0:
         return out
     _topk_launch("conjunctive_topk_launch", _TOPK_ARGS, postings, lanes, (),
-                 fwd_terms, out, max_tiles * tile, iters)
+                 fwd_terms, fwd_stride, out, max_tiles * tile, iters)
     topk_launches += 1
     return out
 
 
 def conjunctive_topk_packed(postings, packed, d_start, d_end, starts, ends, dead,
                             fwd_terms, term_lo, term_hi, *, k: int, tile: int,
-                            max_tiles: int, iters: int):
+                            max_tiles: int, iters: int, fwd_stride: int = 1):
     """``conjunctive_topk`` probing compressed postings: the candidates come
     from the raw ``postings``, the probes decode ``packed`` (the same lists),
     in the "ef" or "bitpack" instantiation. See
@@ -177,7 +183,8 @@ def conjunctive_topk_packed(postings, packed, d_start, d_end, starts, ends, dead
         return conjunctive_topk_packed_ref(postings, packed, d_start, d_end,
                                            starts, ends, dead, fwd_terms, term_lo,
                                            term_hi, k=k, tile=tile,
-                                           max_tiles=max_tiles, iters=iters)
+                                           max_tiles=max_tiles, iters=iters,
+                                           fwd_stride=fwd_stride)
     if packed.n_post != postings.shape[0]:
         raise ValueError("conjunctive_topk_packed: packed postings hold "
                          f"{packed.n_post} postings, the raw ones {postings.shape[0]}")
@@ -192,6 +199,6 @@ def conjunctive_topk_packed(postings, packed, d_start, d_end, starts, ends, dead
     if out.numel() == 0:
         return out
     _topk_launch("conjunctive_topk_packed_launch", _TOPK_PACKED_ARGS, postings,
-                 lanes, middle, fwd_terms, out, max_tiles * tile, iters)
+                 lanes, middle, fwd_terms, fwd_stride, out, max_tiles * tile, iters)
     topk_packed_launches += 1
     return out

@@ -27,7 +27,9 @@ above, first-k compaction in driver-list order, a lane active while
 step. Lane inputs: d_start/d_end int32[B] (the driver list's span of the
 raw ``postings``, which give the candidates on every codec), the needed
 spans starts/ends int32[B, P], dead bool[B] (the lane answers all INF).
-Output: int32[B, k], INF-padded.
+Output: int32[B, k], INF-padded. ``fwd_stride`` S > 1 reads a docid
+stripe's forward rows (``fwd_rows_of``); the per-tile scans take none, as
+their kernels, off every serving path, read an unstriped index.
 """
 from __future__ import annotations
 
@@ -36,11 +38,18 @@ import torch
 INF = 2**31 - 1
 
 
-def fwd_rows_of(fwd_terms, cands):
-    """``Completions.extract`` rows of ``cands`` [B, T] -> [B, T, M]."""
+def fwd_rows_of(fwd_terms, cands, stride: int = 1):
+    """Forward rows of ``cands`` [B, T] -> [B, T, M]: ``Completions.extract``
+    with ``stride`` 1; a docid stripe's ``LocalFwd.extract`` with ``stride``
+    S, where docid d is row d // S and valid while 0 <= d < n_rows * S."""
     n = fwd_terms.shape[0]
-    valid = (cands >= 0) & (cands < n)
-    return torch.where(valid[..., None], fwd_terms[cands.clamp(0, n - 1)], 0)
+    if stride == 1:
+        valid = (cands >= 0) & (cands < n)
+        row = cands.clamp(0, n - 1)
+    else:
+        valid = (cands >= 0) & (cands.to(torch.int64) < n * stride)
+        row = torch.div(cands, stride, rounding_mode="floor").clamp(0, n - 1)
+    return torch.where(valid[..., None], fwd_terms[row], 0)
 
 
 def conjunctive_scan_ref(cands, starts, ends, postings, fwd_terms, term_lo,
@@ -56,7 +65,8 @@ def conjunctive_scan_packed_ref(cands, starts, ends, packed, fwd_terms,
                  term_hi, iters)
 
 
-def _scan(cands, starts, ends, lookup, fwd_terms, term_lo, term_hi, iters):
+def _scan(cands, starts, ends, lookup, fwd_terms, term_lo, term_hi, iters,
+          fwd_stride=1):
     B, T = cands.shape
     member = torch.ones((B, T), dtype=torch.bool, device=cands.device)
     for p in range(starts.shape[1]):
@@ -74,7 +84,7 @@ def _scan(cands, starts, ends, lookup, fwd_terms, term_lo, term_hi, iters):
                       torch.where(valid & ~go, mid, hi))
         hit = (lo < e) & (lookup(lo) == cands)
         member &= torch.where(e > s, hit, True)
-    rows = fwd_rows_of(fwd_terms, cands)
+    rows = fwd_rows_of(fwd_terms, cands, fwd_stride)
     fwd_ok = ((rows >= term_lo[:, None, None])
               & (rows < term_hi[:, None, None])).any(dim=2)
     return member & fwd_ok & (cands != INF)
@@ -82,19 +92,20 @@ def _scan(cands, starts, ends, lookup, fwd_terms, term_lo, term_hi, iters):
 
 def conjunctive_topk_ref(postings, d_start, d_end, starts, ends, dead,
                          fwd_terms, term_lo, term_hi, *, k: int, tile: int,
-                         max_tiles: int, iters: int):
-    scan = lambda cand: conjunctive_scan_ref(cand, starts, ends, postings,
-                                             fwd_terms, term_lo, term_hi,
-                                             iters=iters)
+                         max_tiles: int, iters: int, fwd_stride: int = 1):
+    n_post = postings.shape[0]
+    scan = lambda cand: _scan(cand, starts, ends,
+                              lambda p: postings[p.clamp(0, n_post - 1)],
+                              fwd_terms, term_lo, term_hi, iters, fwd_stride)
     return _topk(postings, d_start, d_end, dead, scan, k, tile, max_tiles)
 
 
 def conjunctive_topk_packed_ref(postings, packed, d_start, d_end, starts, ends,
                                 dead, fwd_terms, term_lo, term_hi, *, k: int,
-                                tile: int, max_tiles: int, iters: int):
-    scan = lambda cand: conjunctive_scan_packed_ref(cand, starts, ends, packed,
-                                                    fwd_terms, term_lo, term_hi,
-                                                    iters=iters)
+                                tile: int, max_tiles: int, iters: int,
+                                fwd_stride: int = 1):
+    scan = lambda cand: _scan(cand, starts, ends, packed.lookup, fwd_terms,
+                              term_lo, term_hi, iters, fwd_stride)
     return _topk(postings, d_start, d_end, dead, scan, k, tile, max_tiles)
 
 

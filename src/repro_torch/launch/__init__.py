@@ -1,0 +1,6 @@
+"""Entry points: ``python -m repro_torch.launch.serve`` builds a QAC index
+from a synthetic log and serves it on the card in every mode of the JAX
+package's launcher (the fused step, ``--routed``, ``--stripes N``,
+``--interactive``, ``--online``, ``--cluster N --drill``, ``--freshness``,
+``--observe --trace-out``, ``--check``). The training, dry-run, mesh and
+roofline launchers wait for the port's training and distribution work."""

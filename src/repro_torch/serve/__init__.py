@@ -26,7 +26,8 @@ from .cluster import (ClusterConfig, ClusterResult, QACServingCluster,
 from .freshness import (FreshnessConfig, FreshResult, GenerationalQAC,
                         parse_and_prepare, witness_answers)
 from .frontend import QACFrontend, route_classes
-from .qac import (qac_serve_step, qac_serve_step_vmap, serve_multi_term,
+from .qac import (qac_serve_step, qac_serve_step_vmap, qac_serve_striped,
+                  serve_multi_term,
                   serve_multi_term_vmap, serve_single_term,
                   serve_single_term_full, serve_single_term_vmap)
 from .runtime import (QACOnlineRuntime, QACRequest, RuntimeConfig,
@@ -37,7 +38,7 @@ __all__ = ["ClusterConfig", "ClusterResult", "FreshResult", "FreshnessConfig",
            "QACServingCluster", "RuntimeConfig", "assign_sla",
            "check_cluster_parity", "check_cluster_parity_timed",
            "parse_and_prepare", "prepare_requests", "qac_serve_step",
-           "qac_serve_step_vmap", "rendezvous_route", "route_classes",
+           "qac_serve_step_vmap", "qac_serve_striped", "rendezvous_route", "route_classes",
            "run_naive_trace", "serve_multi_term", "serve_multi_term_vmap",
            "serve_single_term", "serve_single_term_full",
            "serve_single_term_vmap", "witness_answers"]

@@ -169,7 +169,12 @@ class GenerationalQAC:
                  rt_cfg: RuntimeConfig | None = None,
                  frontend_kwargs: dict | None = None,
                  postings_codec: str | None = "ef", device=None,
-                 tracer=None, registry=None):
+                 tracer=None, registry=None, built=None):
+        """Generation 0 is ``build_qac_index`` over ``queries``/``scores``,
+        or ``built``: the ``(qidx, kept, scores)`` that ``build_qac_index``
+        already returned for that log (its index on ``device``), which is
+        served as it is and not built again. Later generations rebuild from
+        ``kept`` and ``scores`` with ``postings_codec`` either way."""
         self.cfg = cfg if cfg is not None else FreshnessConfig()
         self.rt_cfg = rt_cfg if rt_cfg is not None else RuntimeConfig()
         self.device = resolve_device(device)
@@ -183,9 +188,14 @@ class GenerationalQAC:
         self._fe_kwargs = dict(specialize_list_pad=False)
         self._fe_kwargs.update(frontend_kwargs or {})
         self._dispatch_logging = False
-        qidx, kept, sc = build_qac_index(
-            list(queries), list(scores), k_default=self.cfg.k,
-            postings_codec=postings_codec, device=self.device)
+        if built is None:
+            built = build_qac_index(
+                list(queries), list(scores), k_default=self.cfg.k,
+                postings_codec=postings_codec, device=self.device)
+        qidx, kept, sc = built
+        if qidx.device.type != self.device.type:
+            raise ValueError(f"the built index is on {qidx.device}, "
+                             f"the live index serves on {self.device}")
         self._g0 = self._make_generation(0, qidx, kept, sc,
                                          QACFrontend(qidx, **self._fe_kwargs))
         self.reset()

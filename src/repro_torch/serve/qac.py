@@ -1,6 +1,6 @@
 """QAC serving entry points: the class-pure batches serve/frontend.py
-dispatches, the fused mixed-batch step, and the per-query ``*_vmap``
-references.
+dispatches, the fused mixed-batch step, the docid-striped step, and the
+per-query ``*_vmap`` references.
 
 Each runs on the device of the index it is given. ``use_kernel=None``
 resolves to the CUDA kernels on the card and the plain PyTorch versions on
@@ -10,11 +10,22 @@ the CPU (``backend.default_use_kernel``). ``postings_codec`` ("ef" or
 per-query engines over the batch's rows (JAX's ``vmap`` of them; a
 data-dependent loop does not map in torch): references for the tests, on
 no serving path.
+
+``qac_serve_striped`` serves a ``StripedQACIndex``: each stripe answers
+every query with the fused step's engines, then the k-wide rows merge by a
+min-k over docids. Without a process group it loops over the stripes on
+one device (the JAX package's reference path, the one a single card
+runs); with a ``torch.distributed`` group of S ranks each rank serves its
+own stripe and the merge is one ``all_gather`` ("gather") or log2(S)
+pairwise exchanges ("butterfly"), the JAX package's ``shard_map`` over its
+``model`` axis. Its data-parallel batch axes wait for the port's
+distribution work.
 """
 from __future__ import annotations
 
 from ..backend import default_use_kernel
 from ..core.builder import QACIndex
+from ..core.striped import StripedQACIndex, local_index
 import torch
 
 from ..core.search import (complete_conjunctive, complete_conjunctive_batch,
@@ -118,3 +129,74 @@ def serve_multi_term(qidx: QACIndex, prefix_ids, prefix_len, suffix_chars,
         k, tile=tile, max_tiles=max_tiles,
         use_kernel=_use_kernel(qidx, use_kernel), probe_iters=probe_iters,
         postings_codec=postings_codec)
+
+
+def _local_serve(striped: StripedQACIndex, s: int, prefix_ids, prefix_len,
+                 term_lo, term_hi, k: int, tile: int, max_tiles: int,
+                 use_kernel: bool, heap_kernel: bool | None,
+                 postings_codec: str | None):
+    """Stripe ``s``'s [B, k] first-k docids: the fused step's engines over
+    its local views, both classes on their kernels under ``use_kernel``."""
+    idx, fwd, rmq_min = local_index(striped, s)
+    return complete_conjunctive_batch(
+        idx, fwd, rmq_min, prefix_ids, prefix_len, term_lo, term_hi, k,
+        tile=tile, max_tiles=max_tiles, use_kernel=use_kernel,
+        heap_kernel=heap_kernel, postings_codec=postings_codec)
+
+
+def _min_k(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """The k smallest docids of each row, ascending (JAX's ``-top_k(-x)``)."""
+    return torch.sort(rows, dim=1).values[:, :k].contiguous()
+
+
+def qac_serve_striped(striped: StripedQACIndex, dictionary, prefix_ids,
+                      prefix_len, suffix_chars, suffix_len, *, k: int = 10,
+                      tile: int = 128, max_tiles: int = 4096, group=None,
+                      merge: str = "gather", use_kernel: bool | None = None,
+                      heap_kernel: bool | None = None,
+                      postings_codec: str | None = None):
+    """Serve a mixed batch from a docid-striped index -> the global top-k
+    docids int32[B, k] (INF padded), equal to ``qac_serve_step`` on the
+    unstriped index.
+
+    ``group`` None: loop over the S stripes on the index's device, then
+    concatenate to [B, S*k] and keep the k smallest. A ``torch.distributed``
+    process group of S ranks: rank r serves stripe r of its own copy of the
+    index and every rank returns the merged answer. ``merge`` "gather" is
+    one ``all_gather`` of the k-wide rows and a min-k; "butterfly" is
+    log2(S) exchanges with rank ^ 2**i, each keeping the min-k of both
+    rows (k log2(S) docids on the wire a query in place of k S), and
+    needs S a power of two.
+    """
+    if merge not in ("gather", "butterfly"):
+        raise ValueError(f"merge must be 'gather' or 'butterfly', got {merge!r}")
+    use_kernel = (default_use_kernel(striped.device) if use_kernel is None
+                  else use_kernel)
+    term_lo, term_hi = dictionary.locate_prefix(suffix_chars, suffix_len)
+    S = striped.n_stripes
+    args = (prefix_ids, prefix_len, term_lo, term_hi, k, tile, max_tiles,
+            use_kernel, heap_kernel, postings_codec)
+    if group is None:
+        parts = [_local_serve(striped, s, *args) for s in range(S)]
+        return _min_k(torch.cat(parts, dim=1), k)
+
+    import torch.distributed as dist
+
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n != S:
+        raise ValueError(f"a group of {n} ranks serves a {S}-stripe index")
+    if merge == "butterfly" and S & (S - 1):
+        raise ValueError(f"the butterfly merge needs a power-of-two stripe count, got {S}")
+    cur = _local_serve(striped, rank, *args).contiguous()
+    if merge == "gather":
+        parts = [torch.empty_like(cur) for _ in range(S)]
+        dist.all_gather(parts, cur, group=group)
+        return _min_k(torch.cat(parts, dim=1), k)
+    for bit in range(S.bit_length() - 1):
+        peer = dist.get_global_rank(group, rank ^ (1 << bit))
+        other = torch.empty_like(cur)
+        sent = dist.isend(cur, peer, group=group)
+        dist.recv(other, peer, group=group)
+        sent.wait()
+        cur = _min_k(torch.cat([cur, other], dim=1), k)
+    return cur

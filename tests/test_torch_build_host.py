@@ -49,6 +49,36 @@ def test_build_corpus_equals_jax(seed, max_terms):
     np.testing.assert_array_equal(d.keys.numpy(), np.asarray(jd.keys))
 
 
+@pytest.mark.parametrize("case", ["log", "kept", "kept_and_new", "one_not_ascii",
+                                  "one_double_space", "one_trailing_space"])
+def test_build_corpus_of_a_normalized_log_equals_jax(case):
+    """Logs whose queries already are their keys (single spaces, ASCII),
+    in log order and in key order as a rebuild's ``kept`` is, and the same
+    with one query that is not, which takes the tokenizing path."""
+    rng = np.random.default_rng(7)
+    words = ["a", "b", "ab", "ba", "x!y", "zz", "q" * 30]
+    qs = [" ".join(rng.choice(words, int(rng.integers(1, 10))).tolist())
+          for _ in range(400)]
+    sc = rng.choice([0.0, -0.0, 1.0, 2.0, 7.0, np.nan, np.inf, -np.inf], len(qs))
+    if case != "log":
+        _, _, sc, qs = jax_corpus(qs, sc, 8)
+        sc = np.asarray(sc).copy()
+        if case == "kept_and_new":
+            qs, sc = qs + ["a zz", "zz a b"], np.append(sc, [9.0, -1.0])
+    edit = {"one_not_ascii": "ab \u00e9", "one_double_space": "ab  b",
+            "one_trailing_space": "ab b "}
+    if case in edit:
+        qs = list(qs)
+        qs[len(qs) // 2] = edit[case]
+    d, rows, got_sc, kept = build_corpus(qs, sc, 8, device=torch.device("cpu"))
+    jd, jrows, jsc, jkept = jax_corpus(qs, sc, 8)
+    assert kept == jkept and all(type(q) is str for q in kept)
+    np.testing.assert_array_equal(rows, jrows)
+    assert np.array_equal(got_sc, jsc, equal_nan=True)
+    np.testing.assert_array_equal(np.signbit(got_sc), np.signbit(jsc))
+    np.testing.assert_array_equal(d.chars.numpy(), np.asarray(jd.chars))
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_index_from_an_unordered_log_equals_jax(seed):
     qs, sc = _log(100 + seed, 500)

@@ -5,7 +5,8 @@ build of its own visible version (generation, seq) across mid-trace swaps;
 a trace with no swap stays at generation 0; ``replay`` reproduces its
 answers; ``complete_batch`` answers at the current version; the cluster's
 ``propagate_swap`` with timed parity; ``witness_answers`` against the
-oracle; the dispatch log across generations. No JAX here:
+oracle; the dispatch log across generations; generation 0 handed an
+index already built. No JAX here:
 ``FreshnessConfig`` and ``QACArch.freshness_config()`` are held to JAX's
 in ``test_torch_freshness_jax.py``.
 
@@ -114,6 +115,26 @@ def test_replay_resets_and_reproduces(corpus):
     b = gq.replay(events, warm=False)
     assert [r.strings for r in a] == [r.strings for r in b]
     assert [(r.gen, r.seq) for r in a] == [(r.gen, r.seq) for r in b]
+
+
+def test_built_generation_zero_answers_as_a_fresh_build(corpus, monkeypatch):
+    """Handed the ``(qidx, kept, scores)`` that ``build_qac_index`` gave for
+    its log, the live index serves that build as generation 0 and answers
+    a trace across a swap exactly as one that builds it: every
+    ``FreshResult`` field equal, each run on a clock counted from 0."""
+    qs, sc = corpus
+    events = _trace(corpus, seed=1)
+    built = build_qac_index(qs, sc, k_default=10, device="cpu")
+    runs = []
+    for kw in ({}, {"built": built}):
+        fix_clocks(monkeypatch, runtime_mod)
+        gq = _gq(corpus, 3, **kw)
+        runs.append(gq.run_mutation_trace(events))
+        assert gq.snapshot()["n_swaps"] >= 1
+    assert gq.history[0].qidx is built[0]
+    assert runs[0] == runs[1]
+    with pytest.raises(ValueError):
+        GenerationalQAC(None, None, device="meta", built=built)
 
 
 def test_complete_batch_answers_at_the_current_version(corpus):

@@ -872,3 +872,63 @@ def test_qac_serve_step_on_kernels_equals_plain_route(built):
         plain = qac_serve_step(qidx, *args, k=10, use_kernel=False)
         assert torch.equal(got, plain)
         assert np.array_equal(fe.complete(*args), got.cpu().numpy())
+
+
+@pytest.fixture(scope="module")
+def striped4(built):
+    """The built index's own rows (row d = docid d) in 4 docid stripes on
+    the card, "ef" packed."""
+    from repro_torch.core.striped import build_striped
+
+    qidx, _ = built
+    fwd = qidx.completions.fwd_terms.cpu().numpy()
+    return build_striped(fwd, np.arange(len(fwd), dtype=np.int32), qidx.index.n_terms,
+                         4, device="cuda")
+
+
+@pytest.mark.parametrize("codec", [None, "ef"])
+@pytest.mark.parametrize("tile,max_tiles,k", [(128, 4096, 10), (8, 2, 10), (16, 100, 128)])
+def test_strided_conjunctive_topk_kernel_matches_plain(built, striped4, codec, tile,
+                                                       max_tiles, k):
+    """conjunctive_topk reading a stripe's forward rows (fwd_stride 4, row
+    d // 4) against its plain version with the stride, on every stripe."""
+    from repro_torch.core.striped import local_index
+
+    qidx, kept = built
+    raw = _partials(kept, np.random.default_rng(31), 160, pct_single=0)
+    pids, plen, _, suf, slen = parse_queries(qidx.dictionary, raw)
+    tl, th = qidx.dictionary.locate_prefix(suf, slen)
+    for s in range(4):
+        idx, fwd, _ = local_index(striped4, s)
+        lanes = conjunctive_lanes(idx, pids, plen, tl, th)
+        kw = dict(k=k, tile=tile, max_tiles=max_tiles,
+                  iters=idx.postings.shape[0].bit_length(), fwd_stride=4)
+        fargs = (*lanes, fwd.fwd_terms, tl, th)
+        if codec is None:
+            got = isect_ops.conjunctive_topk(idx.postings, *fargs, **kw)
+            want = conjunctive_topk_ref(idx.postings, *fargs, **kw)
+        else:
+            got = isect_ops.conjunctive_topk_packed(idx.postings, idx.packed, *fargs, **kw)
+            want = conjunctive_topk_packed_ref(idx.postings, idx.packed, *fargs, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert bool((got < INF).any())
+
+
+@pytest.mark.parametrize("codec", [None, "ef"])
+def test_qac_serve_striped_on_card_equals_serve_step(built, striped4, codec):
+    """The striped step on the card (heap_topk and conjunctive_topk once a
+    stripe when both classes are present) equals the unstriped fused step."""
+    from repro_torch.serve import qac_serve_step, qac_serve_striped
+
+    qidx, kept = built
+    raw = _partials(kept, np.random.default_rng(13), 200, pct_single=40)
+    pids, plen, _, suf, slen = parse_queries(qidx.dictionary, raw)
+    args = (pids, plen, suf, slen)
+    counters = ((heap_ops, "launches"), (isect_ops, "topk_launches")) if codec is None \
+        else ((heap_ops, "packed_launches"), (isect_ops, "topk_packed_launches"))
+    before = [getattr(m, c) for m, c in counters]
+    got = qac_serve_striped(striped4, qidx.dictionary, *args, k=10, postings_codec=codec)
+    torch.cuda.synchronize()
+    assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [4, 4]
+    assert torch.equal(got, qac_serve_step(qidx, *args, k=10))
