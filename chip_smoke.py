@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's recsys, LM and QAC serving paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--queries N] [--vocab V] [--batch B] [--seed S]
+    python3 chip_smoke.py [--queries N] [--vocab V] [--batch B] [--seed S] [--train]
 
 Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
@@ -138,7 +138,28 @@ Phases, each printing its lines before the next starts:
      4``, ``--interactive``, and ``--online --observe --check --trace-out``
      (at 32 sessions),
      then ``repro_torch.obs.report --check`` on that trace, each mode's wall;
- 11. one JSON line naming every kernel with its launches, times and bound.
+ 11. training (``train_phase``): (a) the backward kernels against their plain
+     versions, flash_attention_bwd at gemma2-2b's training shapes (B=1,
+     H=8, G=4, D=256, bf16, softcap 50, S=4,096 causal and S=8,192 with
+     its 4,096 window, scores widened so the cap bends), smollm-360m's and
+     qwen3-14b's heads at S=4,096 (with SDPA's backward timed beside them)
+     and an fp32 case, each gradient norm-relative within 2e-2 (bf16) or
+     1e-4 (fp32), with two controls (no softcap factor, dK without the
+     group sum) the check must reject; fm_pairwise_bwd at FM's train_batch
+     (B=65,536, F=39, D=10) in fp32 and bf16; (b) gemma2-2b's train step at
+     full width (26 layers, d_model 2304, vocab 256,000, bf16, remat) at
+     B=1, S=4,096 (train_4k's sequence, its batch of 256 cut to one): one
+     step's loss and gradients against the plain route, the same widths at
+     2 layers in fp32 (no TF32) within 1e-4, then 4 AdamW steps on one
+     batch (the loss finite and falling), ms per step, tokens/s, a traced
+     step's busy share, 52 flash_attention and 26 flash_attention_bwd
+     launches a step, peak memory; (c) FM's lazy sparse step at full width
+     (39 x 1M x 10, B=65,536, Zipf ids), 3 steps against the plain route
+     (losses, tables, linear and their moments within rtol 1e-5), and one
+     dense step of DIN, BST and MIND at full width (B=4,096, no kernel);
+     (d) ``repro_torch.launch.train.main`` with ``--drill`` (one restart,
+     the loss falling);
+ 12. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
 """
@@ -150,6 +171,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -208,17 +230,27 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
                                 (*CODECS, "striped")),
     "fm_pairwise": ("repro_torch.kernels.fm_pairwise.ops", "launches",
                     "src/repro_torch/csrc/fm_pairwise.cu",
-                    "src/repro/kernels/fm_pairwise/kernel.py:27", ()),
+                    "src/repro/kernels/fm_pairwise/kernel.py:27", ("train",)),
     "fm_forward": ("repro_torch.kernels.fm_pairwise.ops", "forward_launches",
                    "src/repro_torch/csrc/fm_pairwise.cu",
                    "src/repro/kernels/fm_pairwise/kernel.py:27", ("recsys",)),
     "flash_attention": ("repro_torch.kernels.flash_attention.ops", "launches",
                         "src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:93", ("lm",)),
+                        "src/repro/kernels/flash_attention/kernel.py:93", ("lm", "train")),
+    # the gradients of the two TPU kernels on the training path (the JAX
+    # package differentiates their references by autodiff)
+    "flash_attention_bwd": ("repro_torch.kernels.flash_attention.ops", "bwd_launches",
+                            "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:93", ("train",)),
+    "fm_pairwise_bwd": ("repro_torch.kernels.fm_pairwise.ops", "bwd_launches",
+                        "src/repro_torch/csrc/fm_pairwise.cu",
+                        "src/repro/kernels/fm_pairwise/kernel.py:27", ("train",)),
 }
 # what a kernel replaces beside its TPU kernel: fm_forward also takes the
 # gathers of FMModel.forward around fm_pairwise
-ALSO_REPLACES = {"fm_forward": "src/repro/models/recsys.py:109-111"}
+ALSO_REPLACES = {"fm_forward": "src/repro/models/recsys.py:109-111",
+                 "flash_attention_bwd": "jax.vjp of src/repro/kernels/flash_attention/ref.py:18",
+                 "fm_pairwise_bwd": "jax.grad of src/repro/kernels/fm_pairwise/ref.py"}
 # the kernels each frontend route's main-batch run launches, and no others
 # (the per-tile conjunctive_scan kernels are held in phase 6, off the path)
 ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_topk"),
@@ -228,7 +260,9 @@ ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_topk"),
                  "ef": ("heap_topk_packed", "conjunctive_topk_packed"),
                  "bitpack": ("heap_topk_packed", "conjunctive_topk_packed"),
                  "recsys": ("fm_forward",),
-                 "lm": ("flash_attention",)}
+                 "lm": ("flash_attention",),
+                 "train": ("flash_attention", "flash_attention_bwd", "fm_pairwise",
+                           "fm_pairwise_bwd")}
 # the __global__ each wrapper launches, as the profiler names it
 TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               "heap_topk": "heap_topk_kernel<qac::RawLookup>",
@@ -248,7 +282,10 @@ TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               "fm_forward": "fm_forward_kernel<",     # <T, kVec>
               # flash_attention_kernel<D> (fp32) or flash_attention_tc_kernel<D, decode,
               # softcap> (bf16: prefill, or split-KV decode with its merge in the launch)
-              "flash_attention": "flash_attention_"}
+              "flash_attention": "flash_attention_",
+              # fa_bwd_rows_kernel, fa_bwd_dkdv_kernel and fa_bwd_dq_kernel <T, D>
+              "flash_attention_bwd": "fa_bwd_",
+              "fm_pairwise_bwd": "fm_pairwise_bwd_kernel<"}
 FM_TOL = dict(rtol=1e-5, atol=1e-6)        # FM logits, and the kernel vs plain
 FLOAT_TOL = dict(rtol=1e-4, atol=1e-5)     # DIN, BST and MIND
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # rtol = atol, tests/test_kernels.py
@@ -395,17 +432,19 @@ def device_times_events(prof):
     return [e for e in prof.key_averages() if e.self_device_time_total > 0]
 
 
-def kernel_device_ms(torch, fn, tag: str, reps: int) -> tuple[float, int]:
+def kernel_device_ms(torch, fn, tag: str, reps: int, per_call: int = 1) -> tuple[float, int]:
     """(mean device ms per launch, launches traced) of the ``__global__``
     whose traced name holds ``tag`` over ``reps`` calls of ``fn`` after
     warm-up, from ``torch.profiler``'s CUDA activity (the kernel's own time,
     without the host's cost of the call), averaged over the launches the
-    trace holds."""
+    trace holds. A wrapper whose one launch is ``per_call`` kernels (the
+    attention backward's three) is timed per wrapper launch: the kernels'
+    sum."""
     fn()
     torch.cuda.synchronize()
-    prof, held = traced(torch, fn, reps, tag, reps)
+    prof, held = traced(torch, fn, reps, tag, reps * per_call)
     hits = [e for e in device_times_events(prof) if tag in e.key]
-    return sum(e.self_device_time_total for e in hits) / held / 1e3, held
+    return sum(e.self_device_time_total for e in hits) / held * per_call / 1e3, held
 
 
 def median_ms(torch, fn, reps: int) -> float:
@@ -1426,6 +1465,364 @@ def launcher_phase(smi):
 
 
 # --------------------------------------------------------------------------
+# phase 11: training
+# --------------------------------------------------------------------------
+# The backward kernels against their plain versions, norm-relative over
+# each gradient: ||kernel - plain|| / ||plain|| within 1e-4 in fp32 (fp32
+# sums in other orders) and 2e-2 in bf16 (the gradients' own rounding).
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FM_GRAD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
+# gemma2's attention cases widen the scores (q x BWD_QSCALE, x ~ 20 N(0, 1))
+# so that its softcap of 50 bends them: at N(0, 1) scores the cap's factor
+# changes dS by ~3e-3 and no check could see it dropped.
+BWD_QSCALE = 20.0
+# one gemma2-2b step in bf16, kernel route vs plain route: the loss within
+# LM_TRAIN_LOSS_TOL, every parameter's gradient norm-relative within
+# LM_TRAIN_GRAD_TOL (the two attentions round o and P to bf16 at other
+# places, and 26 layers carry it); in fp32 (2 layers, no TF32) both within
+# LM_TRAIN_FP32_TOL.
+LM_TRAIN_LOSS_TOL = 1e-2
+LM_TRAIN_GRAD_TOL = 5e-2
+LM_TRAIN_FP32_TOL = 1e-4
+FM_TRAIN_TOL = 1e-5      # rtol; atol 1e-5 x the largest |value| of the tensor
+TRAIN_STEPS, FM_TRAIN_STEPS = 4, 3
+
+
+def rel_norm(torch, a, b) -> float:
+    """||a - b|| / ||b|| in float64 (0 when both are zero)."""
+    d, n = (a.double() - b.double()).norm(), b.double().norm()
+    return float(d / n) if float(n) > 0 else float(d > 0) * float("inf")
+
+
+def train_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
+    """(a) flash_attention_bwd and fm_pairwise_bwd against their plain
+    versions at the training shapes, with controls the check must reject;
+    (b) gemma2-2b's train step at full width (B=1, S=4,096) through the
+    attention kernels, held against the plain route in bf16 and, at 2
+    layers, in fp32; (c) FM's lazy sparse step at full width through
+    fm_pairwise and its backward, held against the plain route, and one
+    dense step of DIN, BST and MIND; (d) the training launcher's drill.
+    Returns the launch counts of the main path: the LM's and FM's train
+    steps."""
+    import io
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import LM_SHAPES
+    from repro_torch.configs.recsys_common import MODEL_CLS, RECSYS_SHAPES
+    from repro_torch.data import TokenStream, recsys_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fm_pairwise import ops as fm_ops
+    from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_bwd_ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (init_train_state, make_fm_sparse_train_step,
+                                   make_lm_train_step, make_recsys_train_step)
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg = get_arch("gemma2-2b").cfg
+    L, H, G, D = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = LM_SHAPES["train_4k"]["seq"]
+    bf16 = torch.bfloat16
+
+    def counted(fn, want: dict, total=None):
+        """fn() with every count 0 just before and read just after; the run
+        launches exactly ``want`` (kernel -> count) and nothing else."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        if any(c != want.get(name, 0) for name, c in got.items()):
+            fail(f"training: a run launched {got}; it launches {want} only")
+        if total is not None:
+            for name, c in got.items():
+                total[name] = total.get(name, 0) + c
+        return out
+
+    # -- (a) the backward kernels against their plain versions -----------------
+    def bwd_case(case, Hq, Gk, Sq, Dh, dtype, *, window=0, softcap=0.0, qscale=1.0,
+                 sdpa=False, controls=False, reps=3):
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev) for shape in
+                       ((1, Hq, Sq, Dh), (1, Gk, Sq, Dh), (1, Gk, Sq, Dh), (1, Hq, Sq, Dh)))
+        q, k, v, do = (q * qscale).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        o = fa_ops.flash_attention(q, k, v, **kw)         # the forward kernel's output
+        name = str(dtype).split(".")[-1]
+        tol = GRAD_TOL[name]
+        pairs, _ = live_pairs(1, Sq, Sq, True, window)
+        nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
+        ops_needed = 10 * Dh * Hq * pairs           # five products of 2 * Dh a live pair
+        library = None
+        if sdpa:    # SDPA's backward: the same gradient where there is no softcap
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+            library = functools.partial(torch.autograd.grad, out, leaves, do,
+                                        retain_graph=True)
+        errs = {}
+
+        def equal(a, b):
+            errs["rel"] = [rel_norm(torch, x, y) for x, y in zip(a, b)]
+            return all(bool(torch.isfinite(x).all()) for x in a) and max(errs["rel"]) <= tol
+
+        c = hold("flash_attention_bwd",
+                 lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, **kw),
+                 lambda: fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw),
+                 equal, nbytes, reps, f"{case}: q {list(q.shape)} k/v {list(k.shape)} {name}",
+                 plain_reps=0, ops_needed=ops_needed,
+                 ops_per_s=FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S,
+                 trace_reps=reps, library=library, per_call=3)
+        c.update(grad_rel_err=errs["rel"], grad_tol=tol, launches_per_step=L)
+        ctl = ""
+        if controls:    # a backward without the softcap's factor; dK without the group sum
+            want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+            no_cap = rel_norm(torch, fa_ops.flash_attention_bwd_ref(
+                q, k, v, o, do, cap_grad=False, **kw)[0], want[0])
+            no_sum = rel_norm(torch, fa_ops.flash_attention_bwd_ref(
+                q, k, v, o, do, group_sum=False, **kw)[1], want[1])
+            if not (no_cap > tol and no_sum > tol):
+                fail(f"flash_attention_bwd {case}: the check passes a wrong gradient: without "
+                     f"the softcap factor dq scores {no_cap:.3g}, dk without the group sum "
+                     f"{no_sum:.3g}, within {tol}")
+            c.update(control_no_cap_dq=no_cap, control_no_group_sum_dk=no_sum)
+            ctl = (f"; controls: dq without the softcap factor {no_cap:.3g}, dk without "
+                   f"the group sum {no_sum:.3g}, both rejected")
+        lib = f", SDPA backward {c['library_ms']:.3f} ms" if sdpa else ""
+        say(f"[train] flash_attention_bwd {c['case']}: device {c['ms']:.3f} ms/launch (3 "
+            f"kernels), call {c['call_ms']:.3f} ms, plain {c['plain_ms']:.1f} ms{lib}, bound "
+            f"{c['bound_ms']:.3f} ms ({c['bound_by']}: {ops_needed} ops, {nbytes} B); "
+            f"||kernel - plain|| / ||plain|| dq, dk, dv "
+            f"{', '.join(f'{e:.3g}' for e in errs['rel'])} within {tol}{ctl} on {smi}")
+        del q, k, v, o, do
+
+    bwd_case("gemma2 global layer", H, G, S, D, bf16, softcap=cfg.attn_softcap,
+             qscale=BWD_QSCALE, controls=True)
+    bwd_case(f"gemma2 local layer, S={2 * S}", H, G, 2 * S, D, bf16, window=cfg.window,
+             softcap=cfg.attn_softcap, qscale=BWD_QSCALE)
+    bwd_case("smollm-360m heads", 15, 5, S, 64, bf16, sdpa=True)
+    bwd_case("qwen3-14b heads", 40, 8, S, 128, bf16, sdpa=True)
+    bwd_case(f"fp32, D={D}", H, G, 2048, D, torch.float32, softcap=cfg.attn_softcap,
+             qscale=BWD_QSCALE, controls=True)
+    torch.cuda.empty_cache()
+
+    fm_cfg = get_arch("fm").cfg
+    B_fm = RECSYS_SHAPES["train_batch"]["batch"]
+    for dtype in (torch.float32, bf16):
+        e = (torch.randn((B_fm, fm_cfg.n_sparse, fm_cfg.embed_dim), generator=g, device=dev)
+             * 0.02).to(dtype)
+        cot = torch.randn(B_fm, generator=g, device=dev)
+        name = str(dtype).split(".")[-1]
+        nbytes = B_fm * (2 * fm_cfg.n_sparse * fm_cfg.embed_dim * e.element_size() + 4)
+        errs = {}
+
+        def equal(a, b, tol=FM_GRAD_TOL[name]):
+            errs["rel"] = rel_norm(torch, a, b)
+            return a.dtype == b.dtype and bool(torch.isfinite(a).all()) and errs["rel"] <= tol
+
+        c = hold("fm_pairwise_bwd", lambda: fm_ops.fm_pairwise_bwd(e, cot),
+                 lambda: fm_pairwise_bwd_ref(e, cot), equal, nbytes, 50,
+                 f"B={B_fm} F={fm_cfg.n_sparse} D={fm_cfg.embed_dim} {name}", trace_reps=50)
+        c.update(grad_rel_err=errs["rel"], grad_tol=FM_GRAD_TOL[name], launches_per_step=1)
+        say(f"[train] fm_pairwise_bwd {c['case']}: device {c['ms']*1e3:.2f} us/launch, call "
+            f"{c['call_ms']*1e3:.2f} us, plain {c['plain_ms']*1e3:.2f} us, bound "
+            f"{c['bound_ms']*1e3:.2f} us ({nbytes} B); ||kernel - plain|| / ||plain|| "
+            f"{errs['rel']:.3g} within {FM_GRAD_TOL[name]} on {smi}")
+        del e, cot
+
+    # -- (b) gemma2-2b's train step at full width -------------------------------
+    main = {}
+    stream = TokenStream.synthetic(vocab=cfg.vocab, seed=seed)
+    toks = torch.from_numpy(stream.tokens[:S + 1].copy()).to(dev)
+    batch = {"tokens": toks[None, :S], "targets": toks[None, 1:],
+             "mask": torch.ones((1, S), device=dev)}
+
+    def route_grads(model, base, flash):
+        model.cfg = dataclasses.replace(base, use_flash=flash)
+        try:
+            loss = model.loss_fn(batch["tokens"], batch["targets"], batch["mask"])
+            return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            model.cfg = base
+
+    def hold_routes(model, base, layers, loss_tol, grad_tol, what):
+        per_step = {"flash_attention": 2 * layers if base.remat else layers,
+                    "flash_attention_bwd": layers}
+        t0 = time.perf_counter()
+        lk, gk = counted(lambda: route_grads(model, base, None), per_step)
+        t_k = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lp, gp = counted(lambda: route_grads(model, base, False), {})
+        t_p = time.perf_counter() - t0
+        names = [n for n, _ in model.named_parameters()]
+        errs = {n: rel_norm(torch, a, b) for n, a, b in zip(names, gk, gp)}
+        worst = max(errs, key=errs.get)
+        dl = abs(float(lk) - float(lp))
+        if not (math.isfinite(float(lk)) and dl <= loss_tol * max(1.0, abs(float(lp)))
+                and errs[worst] <= grad_tol
+                and all(bool(torch.isfinite(x).all()) for x in gk)):
+            fail(f"lm train {what}: kernel route loss {float(lk)} vs plain {float(lp)}, worst "
+                 f"gradient {worst} at {errs[worst]:.3g} (tolerance {grad_tol})")
+        say(f"[train] gemma2-2b {what} loss and gradients, kernel route ({t_k:.2f} s, "
+            f"{per_step} launches) vs plain route ({t_p:.2f} s, none): loss {float(lk):.6f} vs "
+            f"{float(lp):.6f}; ||g_kernel - g_plain|| / ||g_plain|| at most {errs[worst]:.3g} "
+            f"({worst}) within {grad_tol}, median {float(np.median(list(errs.values()))):.3g} "
+            f"on {smi}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    model = TransformerLM(cfg32, device=dev, seed=seed)
+    hold_routes(model, cfg32, 2, LM_TRAIN_FP32_TOL, LM_TRAIN_FP32_TOL,
+                "fp32 at 2 layers (one local/global pair, no TF32)")
+    del model
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg, device=dev, seed=seed)
+    hold_routes(model, cfg, L, LM_TRAIN_LOSS_TOL, LM_TRAIN_GRAD_TOL, "bf16 one step")
+    torch.cuda.empty_cache()
+    state = init_train_state(dict(model.named_parameters()))
+    step = make_lm_train_step(model, AdamWConfig(lr=3e-3, warmup_steps=1,
+                                                 total_steps=TRAIN_STEPS))
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    losses, walls = [], []
+
+    def train_steps():
+        nonlocal state
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))     # synchronises
+            walls.append(time.perf_counter() - t0)
+
+    counted(train_steps, {k: TRAIN_STEPS * c for k, c in per_step.items()}, main)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"lm train: losses {losses} are not finite and falling")
+    step_ms = float(np.median(walls[1:])) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    events = device_times(prof)
+    busy = sum(d for d, _, _ in events) / 1e3
+    fwd = [(d, c) for d, key, c in events
+           if TRACE_TAGS["flash_attention"] in key and "fa_bwd_" not in key]
+    bwd = [(d, c) for d, key, c in events if TRACE_TAGS["flash_attention_bwd"] in key]
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[train] gemma2-2b bf16 train step B=1 S={S} ({L} layers, remat, AdamW): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} over {TRAIN_STEPS} steps on one batch; "
+        f"{step_ms:.1f} ms/step (median of steps 2-{TRAIN_STEPS}), {S / step_ms * 1e3:.0f} "
+        f"tokens/s; {per_step} launches a step; peak {peak / 2**30:.2f} GiB allocated on {smi}")
+    share = f"{busy / step_ms:.4f}" if busy else "not measured"
+    say(f"[trace] gemma2-2b train step: device busy {busy:.1f} ms of {step_ms:.1f} ms untraced "
+        f"wall, busy share {share}; flash_attention forward {sum(d for d, _ in fwd) / 1e3:.1f} "
+        f"ms in {sum(c for _, c in fwd)} launches, backward "
+        f"{sum(d for d, _ in bwd) / 1e3:.1f} ms in {sum(c for _, c in bwd)} kernels")
+    for d, key, count in events[:8]:
+        say(f"[trace]   {d / 1e3:9.3f} ms  {count:5d} x  {key[:90]}")
+    del model, state, step, prof
+    torch.cuda.empty_cache()
+
+    # -- (c) FM's sparse step at full width; DIN, BST and MIND ------------------
+    rng = np.random.default_rng(seed)
+    fm_batches = []
+    for _ in range(FM_TRAIN_STEPS):
+        feats, labels = recsys_batch(fm_cfg, B_fm, rng)
+        fm_batches.append({"feats": {k: torch.from_numpy(v).to(dev) for k, v in feats.items()},
+                           "labels": torch.from_numpy(labels).to(dev)})
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=FM_TRAIN_STEPS)
+    routes = {}
+    for route, use_kernel in (("kernel", None), ("plain", False)):
+        fm = MODEL_CLS["fm"](dataclasses.replace(fm_cfg, use_kernel=use_kernel), device=dev,
+                             seed=seed)
+        st = init_train_state(dict(fm.named_parameters()))
+        fm_step = make_fm_sparse_train_step(fm, opt)
+        rec = {"losses": [], "walls": []}
+
+        def run(fm_step=fm_step, st=st, rec=rec):
+            for b in fm_batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = fm_step(st, b)
+                rec["losses"].append(float(m["loss"]))
+                rec["walls"].append(time.perf_counter() - t0)
+            return st
+
+        want = ({"fm_pairwise": FM_TRAIN_STEPS, "fm_pairwise_bwd": FM_TRAIN_STEPS}
+                if route == "kernel" else {})
+        rec["state"] = counted(run, want, main if route == "kernel" else None)
+        routes[route] = rec
+        del fm
+    ks, ps = routes["kernel"]["state"], routes["plain"]["state"]
+    worst = {}
+    for what, a, b in (("tables", ks.params["tables"], ps.params["tables"]),
+                       ("linear", ks.params["linear"], ps.params["linear"]),
+                       ("mu tables", ks.opt["mu"]["tables"], ps.opt["mu"]["tables"]),
+                       ("nu tables", ks.opt["nu"]["tables"], ps.opt["nu"]["tables"]),
+                       ("mu linear", ks.opt["mu"]["linear"], ps.opt["mu"]["linear"]),
+                       ("nu linear", ks.opt["nu"]["linear"], ps.opt["nu"]["linear"])):
+        a, b = a.detach(), b.detach()
+        atol = FM_TRAIN_TOL * float(b.abs().max())
+        worst[what] = float(((a - b).abs() / (atol + FM_TRAIN_TOL * b.abs())).max())
+        if worst[what] > 1.0:
+            fail(f"fm sparse train: {what} differ from the plain route beyond rtol "
+                 f"{FM_TRAIN_TOL} (worst element at {worst[what]:.3g} of the tolerance)")
+    kl, pl = routes["kernel"]["losses"], routes["plain"]["losses"]
+    if not all(math.isfinite(x) and abs(x - y) <= FM_TRAIN_TOL * abs(y) for x, y in zip(kl, pl)):
+        fail(f"fm sparse train: losses {kl} vs the plain route's {pl}")
+    fm_ms = {r: float(np.median(routes[r]["walls"])) * 1e3 for r in routes}
+    say(f"[train] fm sparse step B={B_fm} ({fm_cfg.n_sparse} x {fm_cfg.field_vocab} x "
+        f"{fm_cfg.embed_dim}, "
+        f"Zipf ids), {FM_TRAIN_STEPS} steps: kernel route {fm_ms['kernel']:.2f} ms/step "
+        f"(one fm_pairwise and one fm_pairwise_bwd a step), plain route {fm_ms['plain']:.2f} "
+        f"ms/step; losses {', '.join(f'{x:.6f}' for x in kl)} equal the plain route's within "
+        f"rtol {FM_TRAIN_TOL}; tables, linear and their moments within rtol {FM_TRAIN_TOL} "
+        f"(worst element at {max(worst.values()):.3g} of the tolerance) on {smi}")
+    del routes, ks, ps
+    torch.cuda.empty_cache()
+    for kind in ("din", "bst", "mind"):
+        rcfg = get_arch(kind).cfg
+        m = MODEL_CLS[kind](rcfg, device=dev, seed=seed)
+        st = init_train_state(dict(m.named_parameters()))
+        feats, labels = recsys_batch(rcfg, 4096, rng)
+        b = {"feats": {k: torch.from_numpy(v).to(dev) for k, v in feats.items()},
+             "labels": torch.from_numpy(labels).to(dev)}
+        rstep = make_recsys_train_step(m, AdamWConfig(lr=1e-3))
+        t0 = time.perf_counter()
+        _, met = counted(lambda: rstep(st, b), {})
+        loss = float(met["loss"])
+        if not math.isfinite(loss):
+            fail(f"{kind} train step: loss {loss}")
+        say(f"[train] {kind} dense step B=4096 at full width: loss {loss:.6f}, "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms (the first), no kernel launched")
+        del m, st, rstep
+        torch.cuda.empty_cache()
+
+    # -- (d) the training launcher's drill ---------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main(["--arch", "smollm-360m", "--steps", "30", "--drill",
+                                    "--ckpt-dir", tmp])
+        wall = time.perf_counter() - t0
+    done = [ln for ln in buf.getvalue().splitlines() if ln.startswith("done: ")]
+    m = re.search(r"restarts=(\d+),.* loss ([\d.]+) -> ([\d.]+) on (\w+)", done[0]) if done else None
+    if rc != 0 or not m or int(m.group(1)) != 1 or not float(m.group(3)) < float(m.group(2)) \
+            or m.group(4) != dev.type:
+        fail(f"launch.train --drill: {buf.getvalue()[-600:]}")
+    say(f"[train] python -m repro_torch.launch.train --arch smollm-360m --steps 30 --drill in "
+        f"process: {done[0]} ({wall:.1f} s wall); phase took "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return main
+
+
+# --------------------------------------------------------------------------
 # phase 8: the online runtime and the serving cluster
 # --------------------------------------------------------------------------
 def uncached_rows(fe, reqs, pairs):
@@ -1881,6 +2278,8 @@ def main() -> int:
     ap.add_argument("--vocab", type=int, default=1_000_000)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train", action="store_true",
+                    help="only the training phase after the build; prints no result line")
     ap.add_argument("--probe", action="store_true",
                     help="only the live index's probes after the build: the drill on "
                          "the real clock, and MainCorpusView's two paths at the log's "
@@ -1977,7 +2376,7 @@ def main() -> int:
 
     def hold(name, run_kernel, run_plain, equal, bytes_needed, reps, case,
              codec=None, plain_reps=None, ops_needed=0, ops_per_s=FP32_OPS_PER_S,
-             trace_reps=200, library=None):
+             trace_reps=200, library=None, per_call=1):
         """Check the kernel against its plain version; time both, and the one
         PyTorch call ``library`` that computes the same function where there
         is one. Returns the case's record: device ms per launch (over a trace
@@ -1986,7 +2385,9 @@ def main() -> int:
         for plain versions that take seconds), library ms,
         the bound (the larger of bytes over the memory rate and operations
         over ``ops_per_s``) and the largest absolute difference of a float
-        output from the plain version's (0 for the exact ones)."""
+        output from the plain version's (0 for the exact ones; over every
+        float output of a tuple). ``per_call``: kernels a wrapper launch
+        runs (timed as one launch)."""
         got = run_kernel()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1995,12 +2396,13 @@ def main() -> int:
         plain_once_ms = (time.perf_counter() - t0) * 1e3
         if not equal(got, want):
             fail(f"{name} {case}: kernel disagrees with its plain version")
-        err = (float((got.double() - want.double()).abs().max()) if
-               isinstance(got, torch.Tensor) and got.is_floating_point() and got.numel()
-               else 0.0)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max([float((a.double() - b.double()).abs().max()) for a, b in pairs
+                   if isinstance(a, torch.Tensor) and a.is_floating_point() and a.numel()],
+                  default=0.0)
         tag = TRACE_TAGS[name if codec is None else (name, codec)]
         t_bytes, t_ops = bytes_needed / HBM_BYTES_PER_S, ops_needed / ops_per_s
-        ms, held = kernel_device_ms(torch, run_kernel, tag, trace_reps)
+        ms, held = kernel_device_ms(torch, run_kernel, tag, trace_reps, per_call)
         c = {"case": case, **({"codec": codec} if codec else {}),
              "ms": ms, "traced_launches": held,
              "call_ms": cuda_ms(torch, run_kernel, reps),
@@ -2016,6 +2418,12 @@ def main() -> int:
     def timing(c):
         return (f"device {c['ms']*1e3:.2f} us/launch, call {c['call_ms']*1e3:.2f} us, "
                 f"plain {c['plain_ms']*1e3:.2f} us, bound {c['bound_ms']*1e3:.4f} us")
+
+    if args.train:
+        train_phase(torch, dev, args.seed, smi, hold, reset_counts, read_counts)
+        lap("train")
+        say(json.dumps({name: cases for name, cases in results.items()}))
+        return 0
 
     # ---- 3. recsys serving --------------------------------------------------
     counted = {"recsys": recsys_phase(torch, dev, args.seed, smi, hold, reset_counts,
@@ -2458,7 +2866,11 @@ def main() -> int:
     launcher_phase(smi)
     lap(10)
 
-    # ---- 11. kernels line ---------------------------------------------------
+    # ---- 11. training -------------------------------------------------------
+    counted["train"] = train_phase(torch, dev, args.seed, smi, hold, reset_counts, read_counts)
+    lap(11)
+
+    # ---- 12. kernels line ---------------------------------------------------
     launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
     say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []

@@ -29,6 +29,8 @@ class RecsysArch:
     cfg: RecsysConfig
     smoke_cfg: RecsysConfig
 
+    family = "recsys"
+
     def cells(self):
         return [Cell(self.arch_id, s, spec["kind"])
                 for s, spec in RECSYS_SHAPES.items()]

@@ -51,6 +51,16 @@
 // bias + lin are rounded to bf16, and the fp32 pair term is added last.
 // No TMA and no wgmma: there is no matrix product, and TMA's tiled copies
 // cannot gather scattered 40-B rows on sm_90.
+//
+// fm_pairwise_bwd_kernel<T> is fm_pairwise's gradient, which the TPU package
+// leaves to autodiff of its reference (jax.grad of fm_pairwise_ref): for the
+// cotangent g float32 [B],
+//   grad_emb[b, f, d] = g[b] * (sum_f' e[b, f', d] - e[b, f, d]),
+// computed in fp32 and written in emb's dtype. One warp per row, as the
+// forward: the row staged in shared memory with coalesced loads, lane d (and
+// d + 32, ...) sums s_d over f into shared memory, then the warp writes the
+// row's F*D gradients with coalesced stores. Bound: bytes, B*(2*F*D*sizeof(T)
+// + 4) (emb read, its gradient written, g read).
 #include <cuda_bf16.h>
 
 #include <type_traits>
@@ -98,6 +108,43 @@ void launch(const void* emb, float* out, int B, int F, int D, cudaStream_t strea
   const int blocks = (B + warps - 1) / warps;
   fm_pairwise_kernel<T><<<blocks, warps * 32, warps * row_bytes, stream>>>(
       static_cast<const T*>(emb), out, B, F, D);
+}
+
+__device__ __forceinline__ void from_float(float x, float* y) { *y = x; }
+__device__ __forceinline__ void from_float(float x, __nv_bfloat16* y) { *y = __float2bfloat16(x); }
+
+template <typename T>
+__global__ void fm_pairwise_bwd_kernel(const T* __restrict__ emb, const float* __restrict__ g,
+                                       T* __restrict__ grad, int B, int F, int D) {
+  extern __shared__ float stage[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * (blockDim.x / 32) + warp;
+  if (row >= B) return;  // the whole warp shares its row, so all lanes leave
+  const int n = F * D;
+  float* e = stage + warp * (n + D);   // the row, then its sums over the fields
+  float* s = e + n;
+  const T* src = emb + row * n;
+  for (int i = lane; i < n; i += 32) e[i] = to_float(src[i]);
+  __syncwarp();
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+    for (int f = 0; f < F; ++f) acc += e[f * D + d];
+    s[d] = acc;
+  }
+  __syncwarp();
+  const float gb = g[row];
+  T* dst = grad + row * n;
+  for (int i = lane; i < n; i += 32) from_float(gb * (s[i % D] - e[i]), dst + i);
+}
+
+template <typename T>
+void launch_bwd(const void* emb, const float* g, void* grad, int B, int F, int D,
+                cudaStream_t stream) {
+  const int row_bytes = (F * D + D) * (int)sizeof(float);
+  const int warps = max(1, min(kMaxWarps, kMaxStageBytes / row_bytes));
+  const int blocks = (B + warps - 1) / warps;
+  fm_pairwise_bwd_kernel<T><<<blocks, warps * 32, warps * row_bytes, stream>>>(
+      static_cast<const T*>(emb), g, static_cast<T*>(grad), B, F, D);
 }
 
 // ---- fm_forward ----------------------------------------------------------
@@ -269,6 +316,22 @@ extern "C" __attribute__((visibility("default"))) int fm_pairwise_launch(
     launch<float>(emb, out, B, F, D, s);
   } else if (dtype == 1) {
     launch<__nv_bfloat16>(emb, out, B, F, D, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// emb [B, F, D] and grad (its gradient, written) of dtype (0 float32, 1
+// bfloat16); g float32 [B], the cotangent of fm_pairwise's output. The
+// wrapper checks 1 <= F <= 64, 1 <= D <= 128 and B >= 1.
+extern "C" __attribute__((visibility("default"))) int fm_pairwise_bwd_launch(
+    const void* emb, const float* g, void* grad, int dtype, int B, int F, int D, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_bwd<float>(emb, g, grad, B, F, D, s);
+  } else if (dtype == 1) {
+    launch_bwd<__nv_bfloat16>(emb, g, grad, B, F, D, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,6 +10,16 @@ dispatched as the JAX package dispatches its XLA fallback: the blockwise
 online softmax from ``Sq * Skv >= 2048 * 2048`` score elements up, the
 materialised scores below. ``use_kernel=False`` asks for the plain versions
 on any device. ``launches`` counts kernel launches only.
+
+Under grad (grad enabled and q, k or v requiring it) the kernel route goes
+through ``FlashAttention``, a ``torch.autograd.Function`` whose forward is
+the same kernel and whose backward is ``flash_attention_bwd``: the
+hand-written backward in ``csrc/flash_attention_bwd.cu`` on the card
+(``bwd_launches`` counts its calls, three kernels each), its plain version
+``ref.flash_attention_bwd_ref`` on the CPU. The plain route
+(``use_kernel=False``, or a CPU tensor with ``use_kernel=None``) is
+differentiated by autograd through its torch ops. No training path passes
+``kv_len``: under grad it raises.
 """
 from __future__ import annotations
 
@@ -18,14 +28,17 @@ import ctypes
 import torch
 
 from ... import backend
-from .ref import flash_attention_blockwise, flash_attention_ref
+from .ref import flash_attention_blockwise, flash_attention_bwd_ref, flash_attention_ref
 
 launches = 0
+bwd_launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCKWISE_FROM = 2048 * 2048   # score elements from which the plain route goes blockwise
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 +
          [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 +
+             [ctypes.c_void_p])
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
 DECODE_MAX_SQ = 8       # query rows per head up to which the decode kernel takes a call
@@ -60,10 +73,6 @@ def _plain(q, k, v, kv_len, **kw):
 
 def _check(q, k, v, kv_len) -> None:
     backend.require_cuda_float("flash_attention", q=q, k=k, v=v)
-    if (torch.is_grad_enabled() and
-            any(t.requires_grad for t in (q, k, v))):
-        raise ValueError("flash_attention: the kernel has no backward; call it under "
-                         "torch.inference_mode() or torch.no_grad()")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q must be [B, H, Sq, D] and k, v [B, G, Skv, D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -92,11 +101,25 @@ def flash_attention(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0.0,
     ``kv_len`` int32 [B] or None. ``use_kernel=None``: the kernel exactly
     when the tensors are on CUDA. On the card q, k and v are contiguous fp32
     or bf16 of one dtype, D is 32, 64, 128 or 256 and H a multiple of G."""
-    global launches
     if use_kernel is None:
         use_kernel = backend.default_use_kernel(q.device)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    if not use_kernel or not q.is_cuda:
+    if not use_kernel:
+        return _plain(q, k, v, kv_len, causal=causal, window=window, softcap=softcap,
+                      sm_scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if kv_len is not None:
+            raise ValueError("flash_attention: no gradient with kv_len (no training path "
+                             "passes one)")
+        return FlashAttention.apply(q, k, v, bool(causal), int(window or 0),
+                                    float(softcap or 0.0), float(scale))
+    return _forward(q, k, v, kv_len, causal, window, softcap, scale)
+
+
+def _forward(q, k, v, kv_len, causal, window, softcap, scale):
+    """The forward kernel on CUDA tensors, its plain version on the CPU."""
+    global launches
+    if not q.is_cuda:
         return _plain(q, k, v, kv_len, causal=causal, window=window, softcap=softcap,
                       sm_scale=scale)
     _check(q, k, v, kv_len)
@@ -124,6 +147,61 @@ def flash_attention(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0.0,
     backend.check("flash_attention", err)
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` (no ``kv_len``) with ``flash_attention_bwd`` as its
+    backward: the kernels on CUDA tensors, their plain versions on the CPU.
+    Saves q, k, v and the output for the backward, which recomputes the
+    scores (no [Sq, Skv] tensor is kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        o = _forward(q, k, v, None, causal, window, softcap, scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
+                        sm_scale=None):
+    """The gradient of ``flash_attention`` (no ``kv_len``): q, o, do [B, H,
+    Sq, D] and k, v [B, G, Skv, D] -> (dq, dk, dv) in the inputs' dtype. On
+    CUDA tensors (contiguous, fp32 or bf16 of one dtype, D in ``HEAD_DIMS``)
+    three kernel launches: the row statistics, dk and dv, dq; on CPU tensors
+    ``ref.flash_attention_bwd_ref``."""
+    global bwd_launches
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=scale)
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    _check(q, k, v, None)
+    backend.require_cuda_float("flash_attention_bwd", o=o, do=do)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o and do must be {tuple(q.shape)} {q.dtype}, "
+                         f"got {tuple(o.shape)} {o.dtype} and {tuple(do.shape)} {do.dtype}")
+    if any(t.data_ptr() % 16 for t in (o, do)):
+        raise ValueError("flash_attention_bwd: o and do must start on a 16-byte boundary")
+    B, H, Sq, D = q.shape
+    G, Skv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = backend.load("flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGS)
+    err = fn(*(backend.ptr(t) for t in (q, k, v, o, do, dq, dk, dv, lse, delta)),
+             backend.FLOAT_CODES[q.dtype], B, H, G, Sq, Skv, D, int(bool(causal)),
+             int(window or 0), float(softcap or 0.0), float(scale), backend.stream(q.device))
+    backend.check("flash_attention_bwd", err)
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 def flash_decode(q, k, v, kv_len, *, window=0, softcap=0.0, sm_scale=None,

@@ -1,7 +1,10 @@
 """Plain PyTorch versions of flash attention, transcriptions of the JAX
 package's ``kernels/flash_attention/ref.py`` (``flash_attention_ref``) and
-``xla_flash.py`` (``flash_attention_blockwise``), and the split-KV decode
-kernel's split-and-merge arithmetic (``flash_decode_split``, for the tests).
+``xla_flash.py`` (``flash_attention_blockwise``), the split-KV decode
+kernel's split-and-merge arithmetic (``flash_decode_split``, for the tests),
+and the backward kernel's equations (``flash_attention_bwd_ref``: the
+gradient that ``jax.vjp`` of the JAX package's ``flash_attention_ref``
+gives).
 
 Semantics shared with the kernel (``csrc/flash_attention.cu``):
   q: [B, H, Sq, D]; k, v: [B, G, Skv, D] with H = G * rep (GQA: head h reads
@@ -139,3 +142,49 @@ def flash_decode_split(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0
         acc = acc + a * f
     out = acc / L.clamp(min=1e-30)
     return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
+                            sm_scale=None, cap_grad: bool = True, group_sum: bool = True):
+    """The gradient of ``flash_attention_ref`` (no ``kv_len``) by FA2's
+    equations, with the whole score matrix materialised in fp32: from q
+    [B, H, Sq, D], k, v [B, G, Skv, D], the forward's output o and its
+    cotangent do [B, H, Sq, D] -> (dq, dk, dv) in the inputs' dtypes.
+
+    With x = scale * q.k and s = c * tanh(x / c) under a softcap c (else
+    s = x): P = softmax of s over the live columns (``lse`` its row
+    log-sum-exp), D_i = sum_d do * o, dP = do V^T, dS = P (dP - D_i), dX =
+    dS (1 - tanh^2(x / c)); dq = scale dX K, dk = scale dX^T Q and dv = P^T
+    do, each summed over the rep query heads of a kv head. A row with no
+    live column has P = 0 and a zero gradient. ``cap_grad=False`` drops the
+    softcap's factor and ``group_sum=False`` takes dk and dv from the first
+    head of each group instead of the sum: wrong gradients, for checks that
+    must reject them."""
+    B, H, Sq, D = q.shape
+    G, Skv = k.shape[1], k.shape[2]
+    rep = H // G
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    kk = k.repeat_interleave(rep, dim=1).float()
+    vv = v.repeat_interleave(rep, dim=1).float()
+    qf, dof = q.float(), do.float()
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+    dcap = 1.0
+    if softcap and softcap > 0:
+        t = torch.tanh(x / softcap)
+        x = softcap * t
+        if cap_grad:
+            dcap = 1.0 - t * t
+    m = _mask(Sq, torch.arange(Skv, device=q.device), Skv, causal, window, None, q.device)
+    x = torch.where(m, x, NEG)
+    mx = x.amax(-1, keepdim=True)
+    lse = mx + torch.where(m, torch.exp(x - mx), 0.0).sum(-1, keepdim=True).clamp(
+        min=1e-30).log()
+    p = torch.where(m, torch.exp(x - lse), 0.0)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    ds = p * (dp - delta) * dcap * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(B, G, rep, Skv, D)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).reshape(B, G, rep, Skv, D)
+    dk, dv = (dk.sum(2), dv.sum(2)) if group_sum else (dk[:, :, 0], dv[:, :, 0])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -5,11 +5,16 @@ or raises ``ValueError``; on CPU tensors it runs its plain version in
 ``ref.py``. Same contract either way.
 
 * ``fm_pairwise(emb)``: the TPU kernel's contract, emb [B, F, D] ->
-  float32[B] (one warp per row). ``launches`` counts its launches.
+  float32[B] (one warp per row). ``launches`` counts its launches. Under
+  grad (grad enabled and emb requiring it) it goes through ``FMPairwise``,
+  whose backward is ``fm_pairwise_bwd``: a second kernel in the same source
+  on the card (``bwd_launches``), ``ref.fm_pairwise_bwd_ref`` on the CPU.
 * ``fm_forward(ids, tables, linear, bias)``: FM's whole forward from the
   ids in one launch (clamp, both gathers, the pairwise term, the bias),
   with no index or [B, F, D] tensor in device memory; its launch shape is
-  :func:`plan_fm_forward`. ``forward_launches`` counts its launches.
+  :func:`plan_fm_forward`. ``forward_launches`` counts its launches. It
+  is the serving fusion and has no backward: it refuses grad. FM trains
+  through the gathers and ``fm_pairwise`` (``models/recsys.py``).
 """
 from __future__ import annotations
 
@@ -21,10 +26,11 @@ import math
 import torch
 
 from ... import backend
-from .ref import fm_forward_ref, fm_pairwise_ref
+from .ref import fm_forward_ref, fm_pairwise_bwd_ref, fm_pairwise_ref
 
 launches = 0
 forward_launches = 0
+bwd_launches = 0
 
 MAX_F, MAX_D = 64, 128
 # csrc/fm_pairwise.cu's kThreads, kEltsPerLane: threads a block, fp32
@@ -33,6 +39,7 @@ THREADS, ELTS_PER_LANE = 128, 16
 FILL_THREADS = 132 * 1024     # split the fields over lanes until B rows give this many
 _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] \
     + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -40,19 +47,27 @@ _FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] \
 def fm_pairwise(emb: torch.Tensor) -> torch.Tensor:
     """emb float32 or bfloat16 [B, F, D], contiguous, 1 <= F <= 64 and
     1 <= D <= 128 on the card -> float32[B]."""
+    if emb.requires_grad and torch.is_grad_enabled():
+        return FMPairwise.apply(emb)
+    return _pairwise(emb)
+
+
+def _check_emb(name: str, emb: torch.Tensor) -> None:
+    backend.require_cuda_float(name, emb=emb)
+    if emb.dim() != 3:
+        raise ValueError(f"{name}: emb must be [B, F, D], got {tuple(emb.shape)}")
+    B, F, D = emb.shape
+    if not (1 <= F <= MAX_F and 1 <= D <= MAX_D):
+        raise ValueError(f"{name}: needs 1 <= F <= {MAX_F} and 1 <= D <= {MAX_D}, "
+                         f"got F={F}, D={D}")
+
+
+def _pairwise(emb: torch.Tensor) -> torch.Tensor:
     global launches
     if not emb.is_cuda:
         return fm_pairwise_ref(emb)
-    backend.require_cuda_float("fm_pairwise", emb=emb)
-    if emb.requires_grad and torch.is_grad_enabled():
-        raise ValueError("fm_pairwise: the kernel has no backward; call it under "
-                         "torch.inference_mode() or torch.no_grad()")
-    if emb.dim() != 3:
-        raise ValueError(f"fm_pairwise: emb must be [B, F, D], got {tuple(emb.shape)}")
+    _check_emb("fm_pairwise", emb)
     B, F, D = emb.shape
-    if not (1 <= F <= MAX_F and 1 <= D <= MAX_D):
-        raise ValueError(f"fm_pairwise: needs 1 <= F <= {MAX_F} and 1 <= D <= {MAX_D}, "
-                         f"got F={F}, D={D}")
     out = torch.empty(B, dtype=torch.float32, device=emb.device)
     if B == 0:
         return out
@@ -62,6 +77,45 @@ def fm_pairwise(emb: torch.Tensor) -> torch.Tensor:
     backend.check("fm_pairwise", err)
     launches += 1
     return out
+
+
+class FMPairwise(torch.autograd.Function):
+    """``fm_pairwise`` with ``fm_pairwise_bwd`` as its backward: the kernels
+    on CUDA tensors, their plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, emb):
+        ctx.save_for_backward(emb)
+        return _pairwise(emb)
+
+    @staticmethod
+    def backward(ctx, g):
+        (emb,) = ctx.saved_tensors
+        return fm_pairwise_bwd(emb, g.float().contiguous())
+
+
+def fm_pairwise_bwd(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``fm_pairwise`` at emb for the cotangent g float32[B]:
+    ``g[b] * (sum_f' emb[b, f'] - emb[b, f])`` in emb's dtype [B, F, D]. On
+    the card emb is as ``fm_pairwise`` takes it and g contiguous fp32."""
+    global bwd_launches
+    if not emb.is_cuda:
+        return fm_pairwise_bwd_ref(emb, g)
+    _check_emb("fm_pairwise_bwd", emb)
+    B, F, D = emb.shape
+    if g.shape != (B,) or g.dtype != torch.float32 or not g.is_contiguous() \
+            or g.device != emb.device:
+        raise ValueError(f"fm_pairwise_bwd: g must be contiguous float32[{B}] on "
+                         f"{emb.device}, got {tuple(g.shape)} {g.dtype} on {g.device}")
+    grad = torch.empty_like(emb)
+    if B == 0:
+        return grad
+    fn = backend.load("fm_pairwise", "fm_pairwise_bwd_launch", _BWD_ARGS)
+    err = fn(backend.ptr(emb), backend.ptr(g), backend.ptr(grad),
+             backend.FLOAT_CODES[emb.dtype], B, F, D, backend.stream(emb.device))
+    backend.check("fm_pairwise", err)
+    bwd_launches += 1
+    return grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +169,9 @@ def fm_forward(ids: torch.Tensor, tables: torch.Tensor, linear: torch.Tensor,
     if ids.device != tables.device:
         raise ValueError(f"fm_forward: ids on {ids.device}, tables on {tables.device}")
     if any(t.requires_grad for t in (tables, linear, bias)) and torch.is_grad_enabled():
-        raise ValueError("fm_forward: the kernel has no backward; call it under "
-                         "torch.inference_mode() or torch.no_grad()")
+        raise ValueError("fm_forward: the serving fusion has no backward; call it under "
+                         "torch.inference_mode() or torch.no_grad() (FMModel trains through "
+                         "the gathers and fm_pairwise)")
     if ids.dim() != 2 or tables.dim() != 3:
         raise ValueError(f"fm_forward: needs ids [B, F] and tables [F, V, D], got "
                          f"{tuple(ids.shape)} and {tuple(tables.shape)}")

@@ -10,6 +10,9 @@ identity, a transcription of the JAX package's
 ``FMModel.forward``, ``models/recsys.py:104-113``): the row index of
 numpy-style indexing (:func:`clamp_rows`), the embedding and linear
 gathers, the pairwise term, and ``bias + lin + pair`` in that order.
+
+``fm_pairwise_bwd_ref`` is the pairwise term's gradient in closed form
+(what ``jax.grad`` of the JAX package's ``fm_pairwise_ref`` gives).
 """
 from __future__ import annotations
 
@@ -32,14 +35,24 @@ def fm_pairwise_ref(emb: torch.Tensor) -> torch.Tensor:
     return 0.5 * (s * s - sq).sum(1)
 
 
+def fm_pairwise_bwd_ref(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """emb [B, F, D] and the cotangent g float32[B] -> the gradient of
+    ``fm_pairwise_ref`` at emb, ``g[b] * (sum_f' e[b, f'] - e[b, f])``,
+    computed in fp32 and returned in emb's dtype."""
+    e = emb.float()
+    return (g.float()[:, None, None] * (e.sum(1, keepdim=True) - e)).to(emb.dtype)
+
+
 def fm_forward_ref(ids: torch.Tensor, tables: torch.Tensor, linear: torch.Tensor,
-                   bias: torch.Tensor) -> torch.Tensor:
+                   bias: torch.Tensor, pairwise=fm_pairwise_ref) -> torch.Tensor:
     """ids int[B, F], tables [F, V, D], linear [F, V, 1], bias [] -> logits
     [B]: float32, or in bf16 the linear sum and ``bias + lin`` rounded to
-    bf16 before the fp32 pair term is added."""
+    bf16 before the fp32 pair term is added. ``pairwise`` computes the pair
+    term from the gathered [B, F, D] rows (``ops.fm_pairwise`` puts the
+    kernel there)."""
     n_f, V, D = tables.shape
     # one flat index into the [F*V] rows: field f's table starts at f*V
     flat = clamp_rows(ids, V) + torch.arange(n_f, device=ids.device) * V
     emb = tables.view(n_f * V, D)[flat]                  # [B, F, D]
     lin = linear.view(n_f * V)[flat].sum(-1)
-    return bias + lin + fm_pairwise_ref(emb)
+    return bias + lin + pairwise(emb)

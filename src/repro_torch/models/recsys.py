@@ -6,8 +6,12 @@ of the JAX package's parameter tree flattened with ``.`` (``tables``,
 ``mlp.0.w``, ``blocks.0.wq``, ...), so that ``convert.recsys_params_from_arrays``
 can carry JAX parameters across. Models are built on ``device`` (default:
 the card) from a ``torch.Generator`` seeded with ``seed``; the values differ
-from those ``jax.random`` draws for the same seed. Call them under
-``torch.inference_mode()``: serving keeps no autograd graph.
+from those ``jax.random`` draws for the same seed. Serve them under
+``torch.inference_mode()``; with grad enabled they train
+(``train/steps.py``): DIN, BST and MIND through torch's autograd, FM through
+the JAX forward's own composition (the clamped gathers, then
+``fm_pairwise``, on the card a kernel whose backward is a kernel too),
+since its serving fusion ``fm_forward`` has no backward.
 
 Gathers keep the JAX package's out-of-range semantics, written out
 explicitly, because torch raises on an out-of-range index (on the card, a
@@ -20,7 +24,7 @@ device-side assert):
   * ``jax.ops.segment_sum``: out-of-range segment ids are dropped.
 
 Not ported yet: ``param_axes`` and ``shard_hint`` (sharding over the TPU
-mesh) and training.
+mesh).
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from torch import nn
 
 from ..backend import default_use_kernel, resolve_device
 from ..kernels.fm_pairwise import ops as fm_ops
-from ..kernels.fm_pairwise.ref import fm_forward_ref
+from ..kernels.fm_pairwise.ref import fm_forward_ref, fm_pairwise_ref
 # clamp_rows is also imported from here
 from .layers import clamp_rows, dense_init, embed_init, rms_norm  # noqa: F401
 
@@ -138,7 +142,10 @@ class FMModel(_Recsys):
     ``use_kernel`` (from ``cfg.use_kernel``; None means on CUDA) sends the
     whole forward through the ``fm_forward`` CUDA kernel, one launch per
     forward (ids in, logits out); otherwise its plain version
-    ``fm_forward_ref`` runs.
+    ``fm_forward_ref`` runs. Under grad (grad enabled and a parameter
+    requiring it) the kernel route is the JAX forward's composition
+    (``models/recsys.py:104-113``): the gathers, then ``fm_pairwise``, one
+    forward and, in the backward, one ``fm_pairwise_bwd`` launch.
     """
 
     def __init__(self, cfg: RecsysConfig, device=None, seed: int = 0):
@@ -152,8 +159,11 @@ class FMModel(_Recsys):
 
     def forward(self, feats):
         """feats["sparse_ids"] int[B, F] -> logits [B]."""
-        fwd = fm_ops.fm_forward if self.use_kernel else fm_forward_ref
-        return fwd(feats["sparse_ids"], self.tables, self.linear, self.bias)
+        args = (feats["sparse_ids"], self.tables, self.linear, self.bias)
+        if torch.is_grad_enabled() and any(p.requires_grad for p in args[1:]):
+            return fm_forward_ref(*args, pairwise=(fm_ops.fm_pairwise if self.use_kernel
+                                                   else fm_pairwise_ref))
+        return (fm_ops.fm_forward if self.use_kernel else fm_forward_ref)(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,15 @@ local layer is the first of each pair).
 Every attention goes through ``kernels/flash_attention`` (``use_flash=None``:
 the CUDA kernel on the card, the plain version on the CPU): ``forward`` with
 the causal mask and each layer's window, ``decode_step`` with one query row
-against the cache and ``kv_len``. This slice serves only: ``forward``,
-``init_cache`` and ``decode_step`` run under ``torch.inference_mode()``.
+against the cache and ``kv_len``. Serving (``forward``, ``init_cache`` and
+``decode_step``) runs under ``torch.inference_mode()``. Training goes through
+``loss_fn`` (JAX's ``loss_fn``, without the MoE aux term: a MoE config
+raises), which runs the same trunk with grad enabled: on the card each
+attention is the forward kernel inside ``FlashAttention``, whose backward is
+the hand-written ``flash_attention_bwd``. With ``cfg.remat`` each scan step
+(its ``layers_per_step`` layers) runs under
+``torch.utils.checkpoint(..., use_reentrant=False)``, as JAX's
+``jax.checkpoint(step)``: its activations are recomputed in the backward.
 
 Hazards written out:
   * The token gather clamps as JAX's ``embed[tokens]`` does (a negative id
@@ -28,6 +35,10 @@ Hazards written out:
   * ``decode_step`` writes the new K and V into the cache tensors in place
     (JAX's ``.at[].set`` makes a new array): a cache passed to it must not
     be used again; use the cache it returns.
+  * ``loss_fn``'s target gather is ``jnp.take_along_axis``'s: a negative
+    target >= -V wraps once, any other out-of-range target gives a NaN nll
+    (torch's gather would raise), and ``nll * mask`` keeps that NaN even
+    where the mask is 0 (:func:`take_targets`).
   * Decode passes ``window=0`` to the kernel for every layer: a local
     layer's ring of ``Sc = min(window, max_len)`` rows, written at
     ``pos % Sc`` and read up to ``min(pos + 1, Sc)``, carries the window.
@@ -40,6 +51,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..backend import resolve_device
 from ..kernels.flash_attention import ops as fa_ops
@@ -79,9 +91,9 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.bfloat16
     use_flash: Optional[bool] = None  # flash_attention kernel; None: on CUDA
-    # The JAX config's training and distribution switches. remat only trades
-    # memory for recompute in a backward, so it changes nothing here; the
-    # MoE sharding switches raise when set, as a MoE config does.
+    # The JAX config's training and distribution switches: remat recomputes
+    # each scan step in loss_fn's backward; the MoE sharding switches raise
+    # when set, as a MoE config does.
     remat: bool = True
     moe_shard_map: bool = False
     moe_fsdp: bool = False
@@ -135,6 +147,18 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         t = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(t), w.to(t)
     return x @ w
+
+
+def take_targets(logp: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``jnp.take_along_axis(logp, targets[..., None], -1)[..., 0]``: a
+    negative target >= -V wraps once; any other target outside [0, V) gives
+    NaN (torch's gather would raise)."""
+    V = logp.shape[-1]
+    t = targets.long()
+    t = torch.where(t < 0, t + V, t)
+    ok = (t >= 0) & (t < V)
+    got = logp.gather(-1, t.clamp(0, V - 1)[..., None])[..., 0]
+    return torch.where(ok, got, float("nan"))
 
 
 class TransformerLM(nn.Module):
@@ -226,24 +250,34 @@ class TransformerLM(nn.Module):
             x = x * torch.tensor(float(c.d_model)).sqrt().to(c.dtype)
         return x
 
-    def _trunk(self, tokens, *, return_cache: bool = False):
+    def _scan_step(self, x, positions, step: int, kvs=None):
+        """The ``layers_per_step`` layers of scan step ``step``; appends each
+        layer's (k, v) to ``kvs`` when given."""
+        c = self.cfg
+        for i in range(c.layers_per_step):
+            lp = self._layer(step, i)
+            attn, (k, v) = self._attention(lp, x, positions, c.window_of(i))
+            x2 = x + attn
+            x = x2 + self._dense_mlp(lp, x2)
+            if kvs is not None:
+                kvs[i][0].append(k)
+                kvs[i][1].append(v)
+        return x
+
+    def _trunk(self, tokens, *, return_cache: bool = False, remat: bool = False):
         """tokens int32[B, S] -> (the last layer's output [B, S, d] before the
         final norm, and per layer of a step (k, v) [n_steps, B, G, S, hd]
-        when ``return_cache``)."""
+        when ``return_cache``). ``remat`` checkpoints each scan step."""
         c = self.cfg
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        kvs = [([], []) for _ in range(c.layers_per_step)]
+        kvs = [([], []) for _ in range(c.layers_per_step)] if return_cache else None
         for step in range(c.n_steps):
-            for i in range(c.layers_per_step):
-                lp = self._layer(step, i)
-                attn, (k, v) = self._attention(lp, x, positions, c.window_of(i))
-                x2 = x + attn
-                x = x2 + self._dense_mlp(lp, x2)
-                if return_cache:
-                    kvs[i][0].append(k)
-                    kvs[i][1].append(v)
+            if remat:
+                x = checkpoint(self._scan_step, x, positions, step, use_reentrant=False)
+            else:
+                x = self._scan_step(x, positions, step, kvs)
         cache = (tuple((torch.stack(ks), torch.stack(vs)) for ks, vs in kvs)
                  if return_cache else None)
         return x, cache
@@ -265,6 +299,16 @@ class TransformerLM(nn.Module):
         """tokens int32[B, S] -> (logits f32[B, S, V], aux 0, cache|None)."""
         x, cache = self._trunk(tokens, return_cache=return_cache)
         return self._head(x), torch.zeros((), dtype=torch.float32), cache
+
+    # -- training ----------------------------------------------------------------
+    def loss_fn(self, tokens, targets, mask):
+        """Masked mean next-token nll: tokens, targets int[B, S], mask float
+        [B, S] -> fp32 []. Runs with grad (when enabled), remat per scan step
+        when ``cfg.remat``."""
+        x, _ = self._trunk(tokens, remat=self.cfg.remat and torch.is_grad_enabled())
+        logp = torch.log_softmax(self._head(x), dim=-1)
+        nll = -take_targets(logp, targets)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
 
     # -- KV-cache serving --------------------------------------------------------
     @torch.inference_mode()

@@ -1,3 +1,3 @@
 from .fault import (  # noqa: F401
-    FaultInjector, HeartbeatRegistry, ReplicaFault, StepMonitor,
+    ElasticPolicy, FaultInjector, HeartbeatRegistry, ReplicaFault, StepMonitor, TrainDriver,
 )

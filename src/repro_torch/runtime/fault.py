@@ -1,18 +1,26 @@
-"""Fault handling of the serving cluster, as in the JAX package's
-``runtime/fault.py``:
+"""Fault handling for training and for the serving cluster, the JAX
+package's ``runtime/fault.py``:
 
   * StepMonitor       per-step wall-time EWMA; flags stragglers by z-score.
   * HeartbeatRegistry host liveness; a missed deadline marks the host dead.
+  * ElasticPolicy     given surviving hosts, proposes the largest valid mesh
+                      (power-of-two data axis, fixed model axis).
   * ReplicaFault      one scheduled replica fault window (kill or stall).
   * FaultInjector     deterministic fault schedule for tests and drills:
                       step-based (``check``) and time-window replica faults
                       (``down``).
+  * TrainDriver       the restart loop: run -> fault -> restore the latest
+                      checkpoint -> continue (``launch/train.py --drill``).
 
 ``serve/cluster.py`` uses StepMonitor (per-replica EWMA service time for
 its queue-pressure estimator), HeartbeatRegistry (replica liveness on the
 cluster's virtual microsecond clock) and FaultInjector time windows
-(replica kill and stall drills). The training parts of the JAX module
-(``ElasticPolicy``, ``TrainDriver``) come with the port's training slice.
+(replica kill and stall drills).
+
+TrainDriver restarts on a ``RuntimeError``, as JAX's does. In torch that
+also covers a CUDA error raised by a kernel launch or a synchronising call;
+after a device-side assert the CUDA context is unusable, so the restart
+then fails again until ``max_restarts`` re-raises.
 """
 from __future__ import annotations
 
@@ -70,6 +78,23 @@ class HeartbeatRegistry:
         return [h for h in self.last if h not in dead]
 
 
+@dataclasses.dataclass
+class ElasticPolicy:
+    """Shrink the data axis to the largest power of two that fits the
+    surviving hosts; the model axis is fixed by the sharded state layout."""
+    chips_per_host: int
+    model_axis: int
+    min_data_axis: int = 1
+
+    def propose_mesh(self, n_alive_hosts: int) -> Optional[tuple[int, int]]:
+        chips = n_alive_hosts * self.chips_per_host
+        data = chips // self.model_axis
+        if data < self.min_data_axis:
+            return None
+        data = 1 << (data.bit_length() - 1)        # floor power of two
+        return (data, self.model_axis)
+
+
 @dataclasses.dataclass(frozen=True)
 class ReplicaFault:
     """One scheduled serving fault: ``replica`` is down over
@@ -98,8 +123,8 @@ class ReplicaFault:
 class FaultInjector:
     """Deterministic fault schedule. Two independent APIs:
 
-    * step-based (training): ``check(step)`` raises at scheduled steps, for
-      a restart loop to catch;
+    * step-based (training): ``check(step)`` raises at scheduled steps —
+      the TrainDriver restart loop catches it;
     * time-window (serving): ``down(replica, t_us)`` reports whether a
       scheduled ReplicaFault window covers ``t_us`` — the serving cluster
       polls it as ground truth while its HeartbeatRegistry provides the
@@ -131,3 +156,40 @@ class FaultInjector:
         return [f for f in self.replica_faults if f.replica == replica]
 
 
+class TrainDriver:
+    """Checkpoint-restart loop around a step function.
+
+    step_fn(state, step) -> state;  save_fn(state, step);  restore_fn() ->
+    (state, step);  on_fault(step, error) -> optional remesh hook.
+    """
+
+    def __init__(self, step_fn, save_fn, restore_fn, *, ckpt_every: int = 50,
+                 max_restarts: int = 10, on_fault=None,
+                 monitor: Optional[StepMonitor] = None):
+        self.step_fn = step_fn
+        self.save_fn = save_fn
+        self.restore_fn = restore_fn
+        self.ckpt_every = ckpt_every
+        self.max_restarts = max_restarts
+        self.on_fault = on_fault
+        self.monitor = monitor or StepMonitor()
+        self.restarts = 0
+
+    def run(self, state, start_step: int, total_steps: int):
+        step = start_step
+        while step < total_steps:
+            try:
+                t0 = time.monotonic()
+                state = self.step_fn(state, step)
+                self.monitor.record(step, time.monotonic() - t0)
+                step += 1
+                if step % self.ckpt_every == 0:
+                    self.save_fn(state, step)
+            except RuntimeError as e:
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise
+                if self.on_fault is not None:
+                    self.on_fault(step, e)
+                state, step = self.restore_fn()
+        return state, step

@@ -14,7 +14,11 @@ the atol scaled by the two sums the sum-square identity subtracts (as in
 each of its two roundings (the linear sum, then bias + lin).
 ``flash_attention`` is held to its plain version with the tolerances of
 ``tests/test_kernels.py``: rtol and atol 2e-5 in fp32, 2e-2 in bf16; the LM
-at smoke width (fp32) to the plain route within rtol and atol 1e-4.
+at smoke width (fp32) to the plain route within rtol and atol 1e-4. The
+backward kernels (``flash_attention_bwd``, ``fm_pairwise_bwd``) are held
+norm-relative per gradient, 1e-4 in fp32 and 2e-2 in bf16 (attention), 1e-6
+and 1e-2 (FM), with controls the attention check must reject; one LM and
+one FM train step go through them against the plain route.
 """
 import dataclasses
 import math
@@ -29,7 +33,8 @@ from repro_torch.core.codecs import pack_postings
 from repro_torch.data import recsys_batch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fm_pairwise import ops as fm_ops
-from repro_torch.kernels.fm_pairwise.ref import clamp_rows, fm_forward_ref, fm_pairwise_ref
+from repro_torch.kernels.fm_pairwise.ref import (clamp_rows, fm_forward_ref,
+                                                 fm_pairwise_bwd_ref, fm_pairwise_ref)
 from repro_torch.kernels.heap_topk import ops as heap_ops
 from repro_torch.kernels.heap_topk.ref import heap_topk_ref
 from repro_torch.kernels.intersect import ops as isect_ops
@@ -433,7 +438,7 @@ def test_fm_pairwise_kernel_refuses_what_it_does_not_take():
     e = torch.randn((16, 10, 39), device="cuda")
     for bad in (e.transpose(1, 2), e.double(), torch.randn((16, 65, 8), device="cuda"),
                 torch.randn((16, 8, 129), device="cuda"), e[0],
-                e.clone().requires_grad_()):
+                e.clone().requires_grad_().transpose(1, 2)):   # the grad path checks too
         with pytest.raises(ValueError):
             fm_ops.fm_pairwise(bad)
     assert fm_ops.launches == before
@@ -686,7 +691,8 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
            (q[:, :3].contiguous(), k, None),                             # H % G
            (q, k, torch.tensor([64], device="cuda")),                    # int64 kv_len
            (q, k, torch.tensor([64, 64], dtype=torch.int32, device="cuda")),
-           (q.clone().requires_grad_(), k, None)]
+           (q.clone().requires_grad_(), k,                               # kv_len under grad
+            torch.tensor([64], dtype=torch.int32, device="cuda"))]
     for qq, kk, kl in bad:
         with pytest.raises(ValueError):
             fa_ops.flash_attention(qq, kk, kk, kl)
@@ -932,3 +938,188 @@ def test_qac_serve_striped_on_card_equals_serve_step(built, striped4, codec):
     torch.cuda.synchronize()
     assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [4, 4]
     assert torch.equal(got, qac_serve_step(qidx, *args, k=10))
+
+
+# -- the backward kernels ------------------------------------------------------
+# flash_attention_bwd and fm_pairwise_bwd against their plain versions,
+# norm-relative over each gradient: ||kernel - plain|| / ||plain|| within
+# 1e-4 in fp32 (fp32 sums in other orders) and 2e-2 in bf16 (the gradients'
+# own rounding, ~2^-9, carried through the products).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-300))
+
+
+def _bwd_inputs(B, H, G, Sq, Skv, D, dtype, seed, causal, window, softcap, qscale=1.0):
+    """q, k, v, the plain forward's o and a cotangent; ``qscale`` widens the
+    scores (x ~ qscale * N(0, 1)) so that a softcap of 50 bends them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
+               for s in ((B, H, Sq, D), (B, G, Skv, D), (B, G, Skv, D)))
+    q = (q.float() * qscale).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o = fa_ops.flash_attention(q, k, v, use_kernel=False, **kw)
+    do = torch.randn((B, H, Sq, D), generator=g, device="cuda").to(dtype)
+    return q, k, v, o, do, kw
+
+
+@pytest.mark.parametrize("B,H,G,Sq,Skv,D,dtype,causal,window,softcap,qscale", [
+    (1, 4, 2, 256, 256, 32, torch.float32, True, 0, 0.0, 1.0),
+    (2, 6, 2, 100, 100, 64, torch.float32, True, 33, 5.0, 1.0),        # ragged, window, softcap
+    (1, 4, 4, 70, 130, 128, torch.float32, True, 0, 0.0, 1.0),         # decode offset
+    (1, 2, 1, 90, 40, 64, torch.float32, True, 0, 0.0, 1.0),           # rows with no column
+    (1, 4, 2, 64, 96, 256, torch.float32, False, 20, 0.0, 1.0),        # not causal, window
+    (1, 8, 4, 512, 512, 256, torch.bfloat16, True, 0, 50.0, 1.0),      # gemma2's heads
+    (1, 8, 4, 256, 256, 256, torch.float32, True, 0, 50.0, 20.0),     # the softcap bends
+    (1, 8, 4, 384, 384, 256, torch.bfloat16, True, 128, 50.0, 1.0),
+    (2, 15, 5, 300, 300, 64, torch.bfloat16, True, 0, 0.0, 1.0),       # smollm's heads
+    (1, 40, 8, 256, 256, 128, torch.bfloat16, True, 0, 0.0, 1.0)])     # qwen3's heads
+def test_flash_attention_bwd_kernel_matches_plain(B, H, G, Sq, Skv, D, dtype, causal,
+                                                  window, softcap, qscale):
+    _card()
+    q, k, v, o, do, kw = _bwd_inputs(B, H, G, Sq, Skv, D, dtype, Sq + D, causal, window,
+                                     softcap, qscale)
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 1
+    want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= GRAD_TOL[dtype], (name, _rel(a, b))
+    if Sq > Skv:    # rows that see no column get a zero gradient
+        assert float(got[0][:, :, :Sq - Skv].abs().max()) == 0.0
+
+
+def test_flash_attention_bwd_controls_are_rejected():
+    """The check above rejects a backward without the softcap's factor and a
+    dK without the sum over the group's heads."""
+    _card()
+    q, k, v, o, do, kw = _bwd_inputs(1, 8, 4, 256, 256, 256, torch.bfloat16, 5, True, 0,
+                                     50.0, qscale=20.0)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    no_cap = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, cap_grad=False, **kw)
+    no_sum = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, group_sum=False, **kw)
+    tol = GRAD_TOL[torch.bfloat16]
+    assert max(_rel(a, b) for a, b in zip(got, want)) <= tol
+    assert _rel(no_cap[0], want[0]) > tol and _rel(no_sum[1], want[1]) > tol
+
+
+def test_flash_attention_function_grads_on_the_card():
+    """Under grad the kernel route goes through FlashAttention: one forward
+    and one backward launch, gradients equal to the plain route's autograd."""
+    _card()
+    q, k, v, _, do, kw = _bwd_inputs(1, 4, 2, 200, 200, 64, torch.float32, 3, True, 50,
+                                     30.0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    out = fa_ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (1, 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa_ops.flash_attention(*plain, use_kernel=False, **kw), plain, do)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= GRAD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("B,F,D,dtype", [(65_536, 39, 10, torch.float32),
+                                         (4096, 39, 10, torch.bfloat16),
+                                         (300, 13, 8, torch.float32),
+                                         (64, 64, 128, torch.float32)])
+def test_fm_pairwise_bwd_kernel_matches_plain(B, F, D, dtype):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(B + F)
+    e = (torch.randn((B, F, D), generator=g, device="cuda") * 0.05).to(dtype)
+    cot = torch.randn(B, generator=g, device="cuda")
+    before = fm_ops.bwd_launches
+    got = fm_ops.fm_pairwise_bwd(e, cot)
+    torch.cuda.synchronize()
+    assert fm_ops.bwd_launches == before + 1
+    want = fm_pairwise_bwd_ref(e, cot)
+    assert got.dtype == dtype and got.shape == e.shape
+    assert _rel(got, want) <= (1e-6 if dtype == torch.float32 else 1e-2)
+    leaf = e.clone().requires_grad_()
+    (through,) = torch.autograd.grad(fm_ops.fm_pairwise(leaf), leaf, cot)
+    assert torch.equal(through, got)
+
+
+def test_lm_train_step_kernel_route_matches_plain_route():
+    """gemma2-2b at smoke width (fp32) on the card: the loss and every
+    parameter's gradient through the kernel route (one forward and one
+    backward attention launch a layer) against the plain route on the same
+    weights, norm-relative within 1e-4; then a train step on the kernel
+    route launches the same and reports the same loss. (Parameters after
+    Adam steps are not compared: Adam moves a parameter by ~lr whatever
+    its gradient, so a gradient at its rounding floor may move it either
+    way.)"""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_lm_train_step
+
+    _card()
+    arch = get_arch("gemma2-2b")
+    model = arch.smoke_model(device="cuda")
+    L = model.cfg.n_layers
+    t = torch.tensor(np.random.default_rng(1).integers(0, arch.smoke_cfg.vocab, (4, 65)),
+                     dtype=torch.int32, device="cuda")
+    batch = {"tokens": t[:, :-1], "targets": t[:, 1:], "mask": torch.ones((4, 64), device="cuda")}
+    routes = {}
+    for use_flash in (None, False):
+        model.cfg = dataclasses.replace(arch.smoke_cfg, use_flash=use_flash)
+        before = (fa_ops.launches, fa_ops.bwd_launches)
+        loss = model.loss_fn(batch["tokens"], batch["targets"], batch["mask"])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        n = 0 if use_flash is False else L
+        assert (fa_ops.launches - before[0], fa_ops.bwd_launches - before[1]) == (n, n)
+        routes[use_flash] = (float(loss.detach()), grads)
+    np.testing.assert_allclose(routes[None][0], routes[False][0], rtol=1e-5)
+    for (name, _), a, b in zip(model.named_parameters(), routes[None][1], routes[False][1]):
+        assert bool(torch.isfinite(a).all()) and _rel(a, b) <= 1e-4, (name, _rel(a, b))
+    model.cfg = arch.smoke_cfg
+    step = make_lm_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    before = (fa_ops.launches, fa_ops.bwd_launches)
+    _, m = step(init_train_state(dict(model.named_parameters())), batch)
+    assert (fa_ops.launches - before[0], fa_ops.bwd_launches - before[1]) == (L, L)
+    np.testing.assert_allclose(float(m["loss"]), routes[None][0], rtol=1e-6)
+
+
+def test_fm_sparse_train_step_kernel_route_matches_plain_route():
+    """Three lazy sparse steps of FM at smoke width on the card: one
+    fm_pairwise and one fm_pairwise_bwd launch a step, no fm_forward;
+    losses, tables and moments as the plain route's within rtol 1e-5."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_fm_sparse_train_step
+
+    _card()
+    cfg = get_arch("fm").smoke_cfg
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(3):
+        feats, labels = recsys_batch(cfg, 512, rng)
+        batches.append({"feats": {k: torch.from_numpy(v).cuda() for k, v in feats.items()},
+                        "labels": torch.from_numpy(labels).cuda()})
+    routes = {}
+    for use_kernel in (None, False):
+        model = FMModel(dataclasses.replace(cfg, use_kernel=use_kernel), device="cuda")
+        state = init_train_state(dict(model.named_parameters()))
+        step = make_fm_sparse_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                            total_steps=3))
+        before = (fm_ops.launches, fm_ops.bwd_launches, fm_ops.forward_launches)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        n = 0 if use_kernel is False else 3
+        assert (fm_ops.launches - before[0], fm_ops.bwd_launches - before[1],
+                fm_ops.forward_launches - before[2]) == (n, n, 0)
+        routes[use_kernel] = (losses, state)
+    np.testing.assert_allclose(routes[None][0], routes[False][0], rtol=1e-5)
+    ks, ps = routes[None][1], routes[False][1]
+    for a, b in ((ks.params["tables"], ps.params["tables"]),
+                 (ks.opt["mu"]["tables"], ps.opt["mu"]["tables"]),
+                 (ks.opt["nu"]["linear"], ps.opt["nu"]["linear"]), (ks.params["bias"],
+                                                                   ps.params["bias"])):
+        a, b = a.detach(), b.detach()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))

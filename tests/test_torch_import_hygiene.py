@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.serve.frontend" in names and len(names) > 20
     assert {"repro_torch.models.transformer", "repro_torch.serve.lm",
             "repro_torch.kernels.flash_attention.ops", "repro_torch.data.lm",
-            "repro_torch.configs.gemma2_2b"} <= set(names)
+            "repro_torch.configs.gemma2_2b", "repro_torch.optim.adamw",
+            "repro_torch.optim.sparse_adam", "repro_torch.train.steps",
+            "repro_torch.ckpt.manager", "repro_torch.launch.train"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -89,6 +91,9 @@ def test_entry_points_without_device_need_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_arrays({}, cfg)
     assert TransformerLM(cfg, device="cpu").device.type == "cpu"
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--steps", "1"])
     assert resolve_device("cpu").type == "cpu"
     qidx, _, _ = build_qac_index(["a b", "a c"], [1.0, 2.0], device="cpu")
     assert qidx.device.type == "cpu"
