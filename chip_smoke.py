@@ -7,8 +7,9 @@ Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
   2. the build of every CUDA kernel from ``src/repro_torch/csrc``, one
      ``nvcc`` per source, all at once, with the ``ptxas -v`` report
-     (registers, spills) of every flash_attention, heap_topk, intersect and
-     fm_pairwise instantiation (a spill in a bf16 flash_attention one fails);
+     (registers, spills) of every flash_attention, flash_attention_bwd,
+     heap_topk, intersect and fm_pairwise instantiation (a spill in a bf16
+     flash_attention or flash_attention_bwd one, ``*_tc_kernel``, fails);
   3. the recsys path at the full widths of the repo's configs: each model at
      smoke width on the card against the CPU; FM (39 fields x 1M rows x 10)
      at B = 512, 262,144 and 1,048,576 through its kernel route (one
@@ -143,9 +144,12 @@ Phases, each printing its lines before the next starts:
      H=8, G=4, D=256, bf16, softcap 50, S=4,096 causal and S=8,192 with
      its 4,096 window, scores widened so the cap bends), smollm-360m's and
      qwen3-14b's heads at S=4,096 (with SDPA's backward timed beside them)
-     and an fp32 case, each gradient norm-relative within 2e-2 (bf16) or
-     1e-4 (fp32), with two controls (no softcap factor, dK without the
-     group sum) the check must reject; fm_pairwise_bwd at FM's train_batch
+     and an fp32 case, given o and lse from the forward kernel as a train
+     step gives them, each gradient norm-relative within 2e-2 (bf16) or
+     1e-4 (fp32) of the plain version on the same inputs and of the plain
+     version with its own lse (the accurate tanh), two calls bit-identical,
+     with two controls (no softcap factor, dK without the group sum) the
+     check must reject; fm_pairwise_bwd at FM's train_batch
      (B=65,536, F=39, D=10) in fp32 and bf16; (b) gemma2-2b's train step at
      full width (26 layers, d_model 2304, vocab 256,000, bf16, remat) at
      B=1, S=4,096 (train_4k's sequence, its batch of 256 cut to one): one
@@ -281,9 +285,10 @@ TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               "fm_pairwise": "fm_pairwise_kernel<",   # <float> or <__nv_bfloat16>
               "fm_forward": "fm_forward_kernel<",     # <T, kVec>
               # flash_attention_kernel<D> (fp32) or flash_attention_tc_kernel<D, decode,
-              # softcap> (bf16: prefill, or split-KV decode with its merge in the launch)
+              # softcap, lse> (bf16: prefill, or split-KV decode with its merge in the launch)
               "flash_attention": "flash_attention_",
-              # fa_bwd_rows_kernel, fa_bwd_dkdv_kernel and fa_bwd_dq_kernel <T, D>
+              # fa_bwd_delta_kernel<T, D>, then fa_bwd_tc_kernel<D, dq, softcap> twice
+              # (bf16: dk dv, then dq) or fa_bwd_dkdv_kernel<D> and fa_bwd_dq_kernel<D>
               "flash_attention_bwd": "fa_bwd_",
               "fm_pairwise_bwd": "fm_pairwise_bwd_kernel<"}
 FM_TOL = dict(rtol=1e-5, atol=1e-6)        # FM logits, and the kernel vs plain
@@ -330,13 +335,29 @@ def demangle(symbol: str) -> str:
         lookup = ("qac::RawLookup" if m.group(2) is None else
                   f"qac::PackedLookup<{'true' if m.group(2) == '1' else 'false'}>")
         return f"{m.group(1)}<{lookup}>"
-    m = re.search(r"(flash_attention_(?:tc_)?kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)E)?", symbol)
+    m = re.search(r"(fa_bwd_tc_kernel)ILi(\d+)ELb(\d)ELb(\d)E", symbol)
+    if m:
+        return (f"{m.group(1)}<{m.group(2)}, {'dq' if m.group(3) == '1' else 'dk dv'}, "
+                f"{'softcap' if m.group(4) == '1' else 'no softcap'}>")
+    m = re.search(r"(fa_bwd_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E", symbol)
+    if m:
+        dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m.group(2), "")
+        return f"{m.group(1)}<{dtype}{m.group(3)}>"
+    m = re.search(r"(flash_attention_(?:tc_)?kernel)ILi(\d+)E(?:Lb(\d)ELb(\d)ELb(\d)E)?", symbol)
     if not m:
         return symbol
-    flags = ("", "") if m.group(3) is None else (
-        ", " + ("decode" if m.group(3) == "1" else "prefill"),
-        ", " + ("softcap" if m.group(4) == "1" else "no softcap"))
-    return f"{m.group(1)}<{m.group(2)}{flags[0]}{flags[1]}>"
+    flags = "" if m.group(3) is None else (
+        ", " + ("decode" if m.group(3) == "1" else "prefill") +
+        ", " + ("softcap" if m.group(4) == "1" else "no softcap") +
+        (", lse" if m.group(5) == "1" else ""))
+    return f"{m.group(1)}<{m.group(2)}{flags}>"
+
+
+def demangle_key(key: str) -> str:
+    """A kernel as the profiler names it, cut to its name and template
+    arguments: ``fa_bwd_tc_kernel<128, true, false>``."""
+    m = re.search(r"(\w+_kernel(?:<[^()]*>)?)\(", key)
+    return m.group(1) if m else key[:60]
 
 
 def nvidia_smi() -> str:
@@ -432,19 +453,21 @@ def device_times_events(prof):
     return [e for e in prof.key_averages() if e.self_device_time_total > 0]
 
 
-def kernel_device_ms(torch, fn, tag: str, reps: int, per_call: int = 1) -> tuple[float, int]:
-    """(mean device ms per launch, launches traced) of the ``__global__``
-    whose traced name holds ``tag`` over ``reps`` calls of ``fn`` after
-    warm-up, from ``torch.profiler``'s CUDA activity (the kernel's own time,
-    without the host's cost of the call), averaged over the launches the
-    trace holds. A wrapper whose one launch is ``per_call`` kernels (the
-    attention backward's three) is timed per wrapper launch: the kernels'
-    sum."""
+def kernel_device_ms(torch, fn, tag: str, reps: int,
+                     per_call: int = 1) -> tuple[float, int, dict]:
+    """(mean device ms per launch, launches traced, {kernel: ms per launch})
+    of the ``__global__`` whose traced name holds ``tag`` over ``reps``
+    calls of ``fn`` after warm-up, from ``torch.profiler``'s CUDA activity
+    (the kernel's own time, without the host's cost of the call), averaged
+    over the launches the trace holds. A wrapper whose one launch is
+    ``per_call`` kernels (the attention backward's three) is timed per
+    wrapper launch: the kernels' sum, each kernel in the dict."""
     fn()
     torch.cuda.synchronize()
     prof, held = traced(torch, fn, reps, tag, reps * per_call)
     hits = [e for e in device_times_events(prof) if tag in e.key]
-    return sum(e.self_device_time_total for e in hits) / held * per_call / 1e3, held
+    parts = {demangle_key(e.key): e.self_device_time_total / e.count / 1e3 for e in hits}
+    return sum(e.self_device_time_total for e in hits) / held * per_call / 1e3, held, parts
 
 
 def median_ms(torch, fn, reps: int) -> float:
@@ -1550,7 +1573,7 @@ def train_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
                        ((1, Hq, Sq, Dh), (1, Gk, Sq, Dh), (1, Gk, Sq, Dh), (1, Hq, Sq, Dh)))
         q, k, v, do = (q * qscale).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
         kw = dict(causal=True, window=window, softcap=softcap)
-        o = fa_ops.flash_attention(q, k, v, **kw)         # the forward kernel's output
+        o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)   # as the train step's forward
         name = str(dtype).split(".")[-1]
         tol = GRAD_TOL[name]
         pairs, _ = live_pairs(1, Sq, Sq, True, window)
@@ -1569,20 +1592,33 @@ def train_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
             return all(bool(torch.isfinite(x).all()) for x in a) and max(errs["rel"]) <= tol
 
         c = hold("flash_attention_bwd",
-                 lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, **kw),
-                 lambda: fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw),
+                 lambda: fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                 lambda: fa_ops.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw),
                  equal, nbytes, reps, f"{case}: q {list(q.shape)} k/v {list(k.shape)} {name}",
                  plain_reps=0, ops_needed=ops_needed,
                  ops_per_s=FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S,
                  trace_reps=reps, library=library, per_call=3)
         c.update(grad_rel_err=errs["rel"], grad_tol=tol, launches_per_step=L)
+        # two calls give the same bytes (no float atomics), and the plain
+        # version with its own lse (the accurate tanh) agrees too
+        first = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        second = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"flash_attention_bwd {case}: two calls give different gradients")
+        own = [rel_norm(torch, a, b) for a, b in zip(
+            first, fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw))]
+        if max(own) > tol:
+            fail(f"flash_attention_bwd {case}: against the plain version with its own lse "
+                 f"dq, dk, dv score {own}, beyond {tol}")
+        c.update(grad_rel_err_own_lse=own, bit_identical_calls=True)
+        del first, second
         ctl = ""
         if controls:    # a backward without the softcap's factor; dK without the group sum
-            want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+            want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
             no_cap = rel_norm(torch, fa_ops.flash_attention_bwd_ref(
-                q, k, v, o, do, cap_grad=False, **kw)[0], want[0])
+                q, k, v, o, do, lse=lse, cap_grad=False, **kw)[0], want[0])
             no_sum = rel_norm(torch, fa_ops.flash_attention_bwd_ref(
-                q, k, v, o, do, group_sum=False, **kw)[1], want[1])
+                q, k, v, o, do, lse=lse, group_sum=False, **kw)[1], want[1])
             if not (no_cap > tol and no_sum > tol):
                 fail(f"flash_attention_bwd {case}: the check passes a wrong gradient: without "
                      f"the softcap factor dq scores {no_cap:.3g}, dk without the group sum "
@@ -1592,11 +1628,13 @@ def train_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
                    f"the group sum {no_sum:.3g}, both rejected")
         lib = f", SDPA backward {c['library_ms']:.3f} ms" if sdpa else ""
         say(f"[train] flash_attention_bwd {c['case']}: device {c['ms']:.3f} ms/launch (3 "
-            f"kernels), call {c['call_ms']:.3f} ms, plain {c['plain_ms']:.1f} ms{lib}, bound "
+            f"kernels: {', '.join(f'{n} {t:.3f}' for n, t in c['kernel_ms'].items())}), call {c['call_ms']:.3f} ms, plain {c['plain_ms']:.1f} ms{lib}, bound "
             f"{c['bound_ms']:.3f} ms ({c['bound_by']}: {ops_needed} ops, {nbytes} B); "
             f"||kernel - plain|| / ||plain|| dq, dk, dv "
-            f"{', '.join(f'{e:.3g}' for e in errs['rel'])} within {tol}{ctl} on {smi}")
-        del q, k, v, o, do
+            f"{', '.join(f'{e:.3g}' for e in errs['rel'])} within {tol} (against the plain "
+            f"version with its own lse {', '.join(f'{e:.3g}' for e in own)}); two calls "
+            f"bit-identical{ctl} on {smi}")
+        del q, k, v, o, lse, do
 
     bwd_case("gemma2 global layer", H, G, S, D, bf16, softcap=cfg.attn_softcap,
              qscale=BWD_QSCALE, controls=True)
@@ -2354,7 +2392,8 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry function" in line:   # the ptxas -v report, per instantiation
                 entry = line.split("'")[1]
-                if name in ("flash_attention", "heap_topk", "intersect", "fm_pairwise"):
+                if name in ("flash_attention", "flash_attention_bwd", "heap_topk", "intersect",
+                            "fm_pairwise"):
                     say(f"[build] {name}: {demangle(entry)}")
             elif "Used" in line or "spill" in line or any(
                     w in line for w in ("C7508", "C7512", "C7520")):   # setmaxnreg, wgmma serialised
@@ -2402,9 +2441,9 @@ def main() -> int:
                   default=0.0)
         tag = TRACE_TAGS[name if codec is None else (name, codec)]
         t_bytes, t_ops = bytes_needed / HBM_BYTES_PER_S, ops_needed / ops_per_s
-        ms, held = kernel_device_ms(torch, run_kernel, tag, trace_reps, per_call)
+        ms, held, parts = kernel_device_ms(torch, run_kernel, tag, trace_reps, per_call)
         c = {"case": case, **({"codec": codec} if codec else {}),
-             "ms": ms, "traced_launches": held,
+             "ms": ms, "traced_launches": held, **({"kernel_ms": parts} if per_call > 1 else {}),
              "call_ms": cuda_ms(torch, run_kernel, reps),
              "plain_ms": plain_once_ms if plain_reps == 0 else
                          cuda_ms(torch, run_plain, plain_reps or max(3, reps // 20)),

@@ -7,9 +7,9 @@ The hand-written Hopper kernels live in ``csrc/*.cu``. Each source is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a plain
 C interface (no PyTorch headers: seconds, not minutes, to build) under
 ``build/repro_torch/`` at the repository root, at first use. All sources are
-compiled in parallel, one ``nvcc`` process each. Libraries are named by a
-hash of their sources, so an edited kernel is rebuilt and a stale one is
-never loaded. The wrappers bind them with ``ctypes``: every pointer and the
+compiled in parallel, one ``nvcc`` process each (each on every core).
+Libraries are named by a hash of their sources, so an edited kernel is
+rebuilt and a stale one is never loaded. The wrappers bind them with ``ctypes``: every pointer and the
 stream pass as ``c_void_p``, every size as ``c_int``, and every launcher
 returns its ``cudaGetLastError()`` code, which :func:`check` turns into an
 exception. A build or launch failure raises; no wrapper falls back to its
@@ -29,8 +29,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
+# --split-compile=0: nvcc optimises a source's functions on every core at
+# once (the attention sources' dozens of wgmma kernels build in about half
+# the time; ptxas reports the same registers and spills)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -26,7 +26,7 @@
 //
 // Three kernels behind one launcher, each templated on D (32, 64, 128 or
 // 256, the head widths of the LM archs):
-//  * bf16 prefill, flash_attention_tc_kernel<D, false, kCap>, FA3's shape,
+//  * bf16 prefill, flash_attention_tc_kernel<D, false, kCap, false>, FA3's shape,
 //    for the operations bound: every product on the tensor cores through
 //    wgmma, fed by TMA so that no thread spends an instruction on a copy.
 //    Three warpgroups: one thread of the producer's keeps TMA loads of K
@@ -52,9 +52,12 @@
 //    the last, so no block's start waits on a copy; a warpgroup skips the
 //    products of a tile none of its rows reaches. Tiles: 128 query rows by
 //    64 kv rows at D = 256 (64 KB of Q, 2 stages of 32 KB of K and 32 KB of
-//    V), by 128 below.
+//    V), by 128 below. Under training, flash_attention_tc_kernel<D, false,
+//    kCap, true> also writes each row's natural-log log-sum-exp in its
+//    epilogue, for the backward (a template flag, so the serving
+//    instantiations compile as they did without it).
 //  * bf16 decode (up to 8 query rows per head, rep * Sq <= 64; ops.py::
-//    plan_splits), flash_attention_tc_kernel<D, true, kCap>, split-KV, for
+//    plan_splits), flash_attention_tc_kernel<D, true, kCap, false>, split-KV, for
 //    the bytes bound: every cache byte read once, by enough blocks to keep
 //    the card's memory busy. A block owns one (b, kv head, split of the
 //    cache) and serves all rep query heads of its kv head in one wgmma tile
@@ -71,15 +74,15 @@
 //  * fp32 (the parity path): flash_attention_kernel, scalar FMAs over 32 x 32
 //    tiles in shared memory (rows padded by one float against bank
 //    conflicts), four threads to a query row, each holding D / 4 output
-//    accumulators in registers; tanhf for the softcap.
+//    accumulators in registers; tanhf for the softcap; each row's lse too
+//    when the caller passes a buffer for it (training).
 // The bf16 kernels round P to bf16 before P V, where the TPU kernel keeps P
 // and V in fp32: a relative error of at most 2^-8 in each weight. The TMA
 // maps are 3-D, {D, rows, heads}, so the rows of a box past Sq or Skv are
 // zero-filled within their own head and never read from the next one.
-#include <cuda.h>          // CUtensorMap and its enums; the driver is reached through the runtime
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"     // mbarriers, TMA, wgmma, the tensor-map encoder
 #include "qac_common.cuh"  // qac_error_string, which every kernel library exports
 
 namespace {
@@ -98,6 +101,7 @@ struct Params {
   int splits;      // decode: the cache's splits (1: no merge)
   int split_cols;  // decode: columns per split, a multiple of the kv tile
   int B;           // batch rows: the prefill work queue spans B * H * q tiles
+  float* lse;      // [B, H, Sq] or null: each row's natural-log log-sum-exp (training)
 };
 
 __device__ __forceinline__ int kv_len_of(const Params& p, int b) {
@@ -227,22 +231,19 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < NO; ++j) out[q_base + (size_t)row * D + sub + 4 * j] = o[j] / den;
+    if (p.lse != nullptr && sub == 0)  // no live column: +inf, so the backward's P is 0
+      p.lse[((size_t)b * p.H + h) * p.Sq + row] = l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma on a TMA-fed ring
 // ---------------------------------------------------------------------------
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSplits = 64;  // ops.py::MAX_SPLITS: the merge's weights fit the idle ring
 constexpr int kDecodeRows = 64;  // ops.py::DECODE_ROWS: one wgmma tile of query rows
 
 template <int D, bool kDecode>
-struct Tc {
-  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span in bytes: one row chunk
-  static constexpr int CC = SW / 2;              // bf16 columns per chunk
-  static constexpr int NCH = D / CC;             // chunks per row
-  static constexpr int KPC = CC / 16;            // k16 steps per chunk
+struct Tc : Swz<D> {  // SW, CC, NCH, KPC and LAYOUT: the swizzle of a [rows, D] tile
   static constexpr int NC = kDecode ? 1 : 2;     // consumer warpgroups
   static constexpr int BQ = 64 * NC;             // query rows per block
   static constexpr int BK = kDecode || D == 256 ? 64 : 128;
@@ -251,7 +252,6 @@ struct Tc {
   // (NC + 1) * (65536 / THREADS) the launch bound leaves each thread.
   static constexpr int THREADS = 128 * (NC + 1);
   static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma descriptor: B128, B64
   static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
   static constexpr uint32_t FIXED = 1024 + Q_BYTES + 8 * 18 + 16;  // alignment, Q, barriers, 2 ints
   static constexpr int STAGES = (232448 - FIXED) / (2 * KV_BYTES) < 4
@@ -262,235 +262,8 @@ struct Tc {
   static_assert(!kDecode || RING >= kMaxSplits * kDecodeRows * 4, "merge weights");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3-D map {D, rows, heads} at (col, row, head) into shared
-// memory; its bytes count against the barrier's expected transactions.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
-      : "memory");
-}
-
-// A wgmma shared-memory operand: start address, leading and stride byte
-// offsets (all in 16-byte units) and the swizzle mode.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(layout) << 62;
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void named_sync_128() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N]: A and B from shared memory (K-major).
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
-// D[64 x N] += A[64 x 16] B[16 x N]: A from registers, B from shared memory
-// MN-major (transposed).
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
-        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
-        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 // Shared memory: Q [NCH chunks][BQ rows][SW bytes], then the K ring and the
 // V ring, stage s of each holding a tile as [NCH][BK][SW], then the barriers
@@ -498,10 +271,8 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
 // q_empty, then the merge's flag and the producer's current item. Every
 // region starts on 1024 bytes, the period of the 128-byte swizzle.
 //
-// Fragment layout of a wgmma m64nN fp32 accumulator d[N / 2] in thread t of
-// the warpgroup (warp w = t / 32, lane l): d[4j + 2h + e] is row
-// 16w + l/4 + 8h, column 8j + 2(l%4) + e. For k16 step kk of P V, the A
-// registers are d[8kk .. 8kk + 7] of S in pairs, in that order.
+// The accumulators' fragment layout, and how P's becomes the A registers of
+// P V: hopper.cuh.
 //
 // A prefill block is persistent, one per SM: its producer takes work items
 // (q tile, head, batch row) from a queue, a counter in device memory that
@@ -515,7 +286,7 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
 // softmax of tile i while the tensor cores finish P_{i-1} V_{i-1}, then
 // rescales O and rounds P_i into the A registers. K and V have rings of
 // their own, so K_i's stage is free as soon as S_i is done.
-template <int D, bool kDecode, bool kCap>
+template <int D, bool kDecode, bool kCap, bool kLse>
 __global__ void __launch_bounds__(Tc<D, kDecode>::THREADS, 1)
     flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -821,6 +592,9 @@ __global__ void __launch_bounds__(Tc<D, kDecode>::THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           if (!real[h]) continue;
           const float inv = 1.f / fmaxf(l[h], 1e-30f);
+          if (kLse && quad == 0)  // ln(sum 2^(k2 u)) = ln 2 (k2 m + log2 l); +inf on an empty row
+            p.lse[static_cast<size_t>(w.q_head) * p.Sq + q_row[h]] =
+                l[h] > 0.f ? kLn2 * fmaf(k2, m[h], log2f(l[h])) : INFINITY;
           bf16* orow = out + (static_cast<size_t>(w.q_head) * p.R +
                               (kDecode ? box_row[h] : q_row[h])) * D;
 #pragma unroll
@@ -904,40 +678,8 @@ __global__ void __launch_bounds__(Tc<D, kDecode>::THREADS, 1)
   }
 }
 
-// The driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
-}
 
-// bf16 [heads, rows, D] at ptr, read in boxes of box_rows rows x one chunk,
-// swizzled as the kernel's shared memory expects. Rows past `rows` read 0.
-template <int D>
-bool tensor_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map, const void* ptr,
-                int rows, int heads, int box_rows) {
-  using T = Tc<D, false>;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::CC), static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
-template <int D, bool kDecode, bool kCap>
+template <int D, bool kDecode, bool kCap, bool kLse = false>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, void* part,
                       void* counters, int B, const Params& p, cudaStream_t stream) {
   using T = Tc<D, kDecode>;
@@ -956,7 +698,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, vo
       !tensor_map<D>(encode, &tk, k, p.Skv, B * p.G, T::BK) ||
       !tensor_map<D>(encode, &tv, v, p.Skv, B * p.G, T::BK))
     return cudaErrorInvalidValue;
-  const auto kernel = flash_attention_tc_kernel<D, kDecode, kCap>;
+  const auto kernel = flash_attention_tc_kernel<D, kDecode, kCap, kLse>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::SMEM));
   if (err != cudaSuccess) return err;
@@ -981,8 +723,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
   if (dtype == 1) {
     const bool cap = p.softcap > 0.f;
     if (p.splits > 0)
-      return cap ? launch_tc<D, true, true>(q, k, v, out, part, counters, B, p, stream)
-                 : launch_tc<D, true, false>(q, k, v, out, part, counters, B, p, stream);
+      return p.lse != nullptr ? cudaErrorInvalidValue  // the decode kernel writes no lse
+             : cap ? launch_tc<D, true, true>(q, k, v, out, part, counters, B, p, stream)
+                   : launch_tc<D, true, false>(q, k, v, out, part, counters, B, p, stream);
+    if (p.lse != nullptr)  // training: the same prefill kernel, writing each row's lse
+      return cap ? launch_tc<D, false, true, true>(q, k, v, out, part, counters, B, p, stream)
+                 : launch_tc<D, false, false, true>(q, k, v, out, part, counters, B, p, stream);
     return cap ? launch_tc<D, false, true>(q, k, v, out, part, counters, B, p, stream)
                : launch_tc<D, false, false>(q, k, v, out, part, counters, B, p, stream);
   }
@@ -1004,19 +750,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
 // of split_cols columns (ops.py::plan_splits; part and counters, the merge's
 // scratch and a zeroed ticket per kv head, are needed when splits > 1); 0
 // for the prefill kernel, whose counters is one zeroed int, its work queue.
-// The fp32 kernel takes every call alike. The wrapper checks the shapes
+// The fp32 kernel takes every call alike. lse, fp32 [B, H, Sq] or null,
+// asks for each row's natural-log log-sum-exp beside o (+inf on a row with no
+// live column), for the backward: the fp32 kernel or the bf16 prefill kernel
+// (not with splits > 0). The wrapper checks the shapes
 // (H % G == 0, D in {32, 64, 128, 256}), that every tensor is contiguous on
 // one card with 16-byte aligned rows, and that B, H, Sq and Skv are at
 // least 1.
 extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* kv_len, void* out, int dtype,
     int B, int H, int G, int Sq, int Skv, int D, int causal, int window, float softcap,
-    float scale, int splits, int split_cols, void* part, void* counters, void* stream) {
+    float scale, int splits, int split_cols, void* part, void* counters, float* lse,
+    void* stream) {
   if ((dtype != 0 && dtype != 1) || G < 1 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rep = H / G;
   const Params p{kv_len, H,     Sq, Skv, rep, Skv - Sq, causal, window, softcap, scale, G,
-                 splits > 0 ? rep * Sq : Sq, splits, split_cols, B};
+                 splits > 0 ? rep * Sq : Sq, splits, split_cols, B, lse};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {

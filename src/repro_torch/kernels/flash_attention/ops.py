@@ -13,10 +13,11 @@ on any device. ``launches`` counts kernel launches only.
 
 Under grad (grad enabled and q, k or v requiring it) the kernel route goes
 through ``FlashAttention``, a ``torch.autograd.Function`` whose forward is
-the same kernel and whose backward is ``flash_attention_bwd``: the
-hand-written backward in ``csrc/flash_attention_bwd.cu`` on the card
-(``bwd_launches`` counts its calls, three kernels each), its plain version
-``ref.flash_attention_bwd_ref`` on the CPU. The plain route
+``flash_attention_fwd`` (the same kernel, prefill always, writing each
+row's log-sum-exp beside o) and whose backward is ``flash_attention_bwd``:
+the hand-written backward in ``csrc/flash_attention_bwd.cu`` on the card
+(``bwd_launches`` counts its calls, three kernels each), which takes the
+forward's lse; their plain versions on the CPU. The plain route
 (``use_kernel=False``, or a CPU tensor with ``use_kernel=None``) is
 differentiated by autograd through its torch ops. No training path passes
 ``kv_len``: under grad it raises.
@@ -32,13 +33,15 @@ from .ref import flash_attention_blockwise, flash_attention_bwd_ref, flash_atten
 
 launches = 0
 bwd_launches = 0
+lse_launches = 0   # forward launches that also wrote lse (the training route)
 
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCKWISE_FROM = 2048 * 2048   # score elements from which the plain route goes blockwise
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 +
-         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 +
              [ctypes.c_void_p])
+STATS_ROWS = 128  # the backward's (lse, D_i) scratch pads Sq to a multiple of this
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
 DECODE_MAX_SQ = 8       # query rows per head up to which the decode kernel takes a call
@@ -116,19 +119,23 @@ def flash_attention(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0.0,
     return _forward(q, k, v, kv_len, causal, window, softcap, scale)
 
 
-def _forward(q, k, v, kv_len, causal, window, softcap, scale):
-    """The forward kernel on CUDA tensors, its plain version on the CPU."""
-    global launches
+def _forward(q, k, v, kv_len, causal, window, softcap, scale, with_lse=False):
+    """The forward kernel on CUDA tensors, its plain version on the CPU;
+    ``with_lse``: (o, lse), lse fp32 [B, H, Sq] (the prefill kernel always)."""
+    global launches, lse_launches
+    kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=scale)
     if not q.is_cuda:
-        return _plain(q, k, v, kv_len, causal=causal, window=window, softcap=softcap,
-                      sm_scale=scale)
+        return _plain(q, k, v, kv_len, return_lse=with_lse, **kw)
     _check(q, k, v, kv_len)
     B, H, Sq, D = q.shape
     G, Skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     if out.numel() == 0:
-        return out
-    splits, cols = plan_splits(B, H, G, Sq, Skv) if q.dtype == torch.bfloat16 else (0, 0)
+        return (out, lse) if with_lse else out
+    splits, cols = ((0, 0) if with_lse or q.dtype != torch.bfloat16
+                    else plan_splits(B, H, G, Sq, Skv))
     part = counters = None
     if splits > 1:   # the merge's scratch: each split's (acc, m, l), a ticket per kv head
         part = torch.empty(B * G * splits * (H // G) * Sq * (D + 2), dtype=torch.float32,
@@ -143,44 +150,59 @@ def _forward(q, k, v, kv_len, causal, window, softcap, scale):
              int(window or 0), float(softcap or 0.0), float(scale), splits, cols,
              None if part is None else backend.ptr(part),
              None if counters is None else backend.ptr(counters),
-             backend.stream(q.device))
+             None if lse is None else backend.ptr(lse), backend.stream(q.device))
     backend.check("flash_attention", err)
     launches += 1
+    if with_lse:
+        lse_launches += 1
+        return out, lse
     return out
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0, sm_scale=None):
+    """The training forward: (o, lse), lse the fp32 [B, H, Sq] natural-log
+    log-sum-exp of each row's live scores (+inf on a row with no live
+    column). On CUDA tensors the prefill kernel (at any Sq, never the
+    split-KV decode kernel), writing lse in its epilogue; on CPU tensors the
+    plain version. No ``kv_len``: no training path passes one."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    return _forward(q, k, v, None, causal, int(window or 0), float(softcap or 0.0),
+                    float(scale), with_lse=True)
 
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` (no ``kv_len``) with ``flash_attention_bwd`` as its
     backward: the kernels on CUDA tensors, their plain versions on the CPU.
-    Saves q, k, v and the output for the backward, which recomputes the
-    scores (no [Sq, Skv] tensor is kept)."""
+    Saves q, k, v, the output and its row log-sum-exp for the backward,
+    which recomputes the scores (no [Sq, Skv] tensor is kept)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
-        o = _forward(q, k, v, None, causal, window, softcap, scale)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, None, causal, window, softcap, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), **ctx.kw)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, softcap=0.0,
                         sm_scale=None):
     """The gradient of ``flash_attention`` (no ``kv_len``): q, o, do [B, H,
-    Sq, D] and k, v [B, G, Skv, D] -> (dq, dk, dv) in the inputs' dtype. On
-    CUDA tensors (contiguous, fp32 or bf16 of one dtype, D in ``HEAD_DIMS``)
-    three kernel launches: the row statistics, dk and dv, dq; on CPU tensors
-    ``ref.flash_attention_bwd_ref``."""
+    Sq, D], k, v [B, G, Skv, D] and the forward's lse (fp32 [B, H, Sq], as
+    ``flash_attention_fwd`` gives it) -> (dq, dk, dv) in the inputs' dtype.
+    On CUDA tensors (contiguous, fp32 or bf16 of one dtype, D in
+    ``HEAD_DIMS``) three kernel launches: the row statistics (D_i beside
+    lse), dk and dv, dq; on CPU tensors ``ref.flash_attention_bwd_ref``."""
     global bwd_launches
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=scale)
     if not q.is_cuda:
-        return flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        return flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
     _check(q, k, v, None)
     backend.require_cuda_float("flash_attention_bwd", o=o, do=do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
@@ -190,13 +212,18 @@ def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
         raise ValueError("flash_attention_bwd: o and do must start on a 16-byte boundary")
     B, H, Sq, D = q.shape
     G, Skv = k.shape[1], k.shape[2]
+    if (not isinstance(lse, torch.Tensor) or lse.shape != (B, H, Sq)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse must be the forward's contiguous fp32 "
+                         f"[{B}, {H}, {Sq}] on {q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    rows = -(-Sq // STATS_ROWS) * STATS_ROWS
+    stats = torch.empty((B * H, rows, 2), dtype=torch.float32, device=q.device)
     fn = backend.load("flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGS)
-    err = fn(*(backend.ptr(t) for t in (q, k, v, o, do, dq, dk, dv, lse, delta)),
+    err = fn(*(backend.ptr(t) for t in (q, k, v, o, do, lse, dq, dk, dv, stats)),
              backend.FLOAT_CODES[q.dtype], B, H, G, Sq, Skv, D, int(bool(causal)),
              int(window or 0), float(softcap or 0.0), float(scale), backend.stream(q.device))
     backend.check("flash_attention_bwd", err)

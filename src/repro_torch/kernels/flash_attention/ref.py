@@ -16,7 +16,10 @@ Semantics shared with the kernel (``csrc/flash_attention.cu``):
   kv_len: [B] valid kv length per batch row (cols >= kv_len are masked)
 Scores and the softmax are fp32; masked scores are filled with ``NEG`` and
 their weights set to 0, and the denominator is clamped at 1e-30, so a fully
-masked row gives 0 and not NaN. The output has q's dtype.
+masked row gives 0 and not NaN. The output has q's dtype. With
+``return_lse=True`` the two forwards also return each row's natural-log
+log-sum-exp over its live scores, fp32 [B, H, Sq], +inf on a row with no
+live column (what the kernels write for the backward).
 """
 from __future__ import annotations
 
@@ -41,8 +44,14 @@ def _mask(Sq: int, cols: torch.Tensor, Skv: int, causal: bool, window: int,
     return mask
 
 
+def _lse(m, l):
+    """A row's log-sum-exp from its max m and sum l of exp(s - m), +inf where
+    l is 0 (no live column)."""
+    return torch.where(l > 0, m + l.clamp(min=1e-30).log(), torch.inf)
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        kv_len=None, sm_scale=None):
+                        kv_len=None, sm_scale=None, return_lse: bool = False):
     """Attention with the whole [Sq, Skv] score matrix materialised."""
     B, H, Sq, D = q.shape
     G, Skv = k.shape[1], k.shape[2]
@@ -58,13 +67,16 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = torch.where(m, s, NEG)
     w = torch.exp(s - s.amax(-1, keepdim=True))
     w = torch.where(m, w, 0.0)
-    denom = w.sum(-1, keepdim=True).clamp(min=1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", w / denom, vv)
-    return out.to(q.dtype)
+    l = w.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", w / l.clamp(min=1e-30), vv).to(q.dtype)
+    if return_lse:
+        return out, _lse(s.amax(-1, keepdim=True), l)[..., 0]
+    return out
 
 
 def flash_attention_blockwise(q, k, v, *, causal=True, window=0, softcap=0.0,
-                              kv_len=None, sm_scale=None, block_k: int = 1024):
+                              kv_len=None, sm_scale=None, block_k: int = 1024,
+                              return_lse: bool = False):
     """The online-softmax recurrence over kv blocks of ``block_k`` (the JAX
     package's scan, as a loop): O(Sq * D) memory beside one [Sq, block_k]
     score tile per head instead of the whole [Sq, Skv] matrix."""
@@ -92,8 +104,10 @@ def flash_attention_blockwise(q, k, v, *, causal=True, window=0, softcap=0.0,
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bgrqk,bgkd->bgrqd", p, vb)
         m = m_new
-    out = acc / l.clamp(min=1e-30)
-    return out.reshape(B, H, Sq, D).to(q.dtype)
+    out = (acc / l.clamp(min=1e-30)).reshape(B, H, Sq, D).to(q.dtype)
+    if return_lse:
+        return out, _lse(m, l).reshape(B, H, Sq)
+    return out
 
 
 def split_ranges(splits: int, split_cols: int, Skv: int) -> list[tuple[int, int]]:
@@ -144,12 +158,14 @@ def flash_decode_split(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
+def flash_attention_bwd_ref(q, k, v, o, do, *, lse=None, causal=True, window=0, softcap=0.0,
                             sm_scale=None, cap_grad: bool = True, group_sum: bool = True):
     """The gradient of ``flash_attention_ref`` (no ``kv_len``) by FA2's
     equations, with the whole score matrix materialised in fp32: from q
     [B, H, Sq, D], k, v [B, G, Skv, D], the forward's output o and its
     cotangent do [B, H, Sq, D] -> (dq, dk, dv) in the inputs' dtypes.
+    ``lse``: the forward's row log-sum-exp (fp32 [B, H, Sq], +inf on a row
+    with no live column), as the kernels take it; None computes it here.
 
     With x = scale * q.k and s = c * tanh(x / c) under a softcap c (else
     s = x): P = softmax of s over the live columns (``lse`` its row
@@ -176,9 +192,12 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, window=0, softcap=0.
             dcap = 1.0 - t * t
     m = _mask(Sq, torch.arange(Skv, device=q.device), Skv, causal, window, None, q.device)
     x = torch.where(m, x, NEG)
-    mx = x.amax(-1, keepdim=True)
-    lse = mx + torch.where(m, torch.exp(x - mx), 0.0).sum(-1, keepdim=True).clamp(
-        min=1e-30).log()
+    if lse is None:
+        mx = x.amax(-1, keepdim=True)
+        lse = mx + torch.where(m, torch.exp(x - mx), 0.0).sum(-1, keepdim=True).clamp(
+            min=1e-30).log()
+    else:
+        lse = lse.float()[..., None]
     p = torch.where(m, torch.exp(x - lse), 0.0)
     delta = (dof * o.float()).sum(-1, keepdim=True)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)

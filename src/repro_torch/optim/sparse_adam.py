@@ -39,7 +39,10 @@ def dedup_row_grads(flat_ids: torch.Tensor, grad_rows: torch.Tensor, n_rows: int
     is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=flat_ids.device),
                           s_ids[1:] != s_ids[:-1]])
     seg = torch.cumsum(is_start.to(torch.int32), 0) - 1                # [N]
-    uniq_g = torch.zeros_like(s_g).index_add_(0, seg, s_g)              # segment_sum
+    # segment_sum; an accumulating index_put_ sums each row's duplicates in
+    # sorted order on the card (index_add_ races them through float atomics,
+    # so the sum, and Adam's step from it, changed from run to run)
+    uniq_g = torch.zeros_like(s_g).index_put_((seg.long(),), s_g, accumulate=True)
     uniq_ids = torch.full((N,), n_rows, dtype=torch.int32, device=flat_ids.device)
     uniq_ids[seg.long()] = s_ids.to(torch.int32)
     valid = torch.arange(N, device=flat_ids.device) <= seg[-1]

@@ -1,7 +1,9 @@
 """The backward kernels' plain versions, and the autograd Functions around
 the kernels on the CPU, against the JAX package's autodiff: ``jax.vjp`` of
 its ``flash_attention_ref`` and ``jax.grad`` of its ``fm_pairwise_ref``, on
-inputs made with numpy from a seed.
+inputs made with numpy from a seed. The training forward's row log-sum-exp
+(what the backward takes) against ``jax.nn.logsumexp`` of the JAX
+reference's masked scores.
 
 Covered: causal, the decode offset (Sq < Skv), a sliding window, the softcap
 (with scores wide enough that it bends them), GQA (dK and dV summed over a
@@ -18,7 +20,9 @@ import torch
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_attention_ref
 from repro.kernels.fm_pairwise.ref import fm_pairwise_ref as jax_fm_pairwise_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_blockwise,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.fm_pairwise import ops as fm_ops
 from repro_torch.kernels.fm_pairwise.ref import fm_pairwise_bwd_ref
 
@@ -68,30 +72,73 @@ def _jax_grads(q, k, v, do, kw):
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 
+def _jax_lse(q, k, kw):
+    """``jax.nn.logsumexp`` over each row of the JAX reference's scores with
+    its masks (-inf on a row with no live column), jitted."""
+    B, H, Sq, D = q.shape
+    G, Skv = k.shape[1], k.shape[2]
+
+    @jax.jit
+    def run(a, b):
+        s = jnp.einsum("bhqd,bhkd->bhqk", a, jnp.repeat(b, H // G, axis=1)) * D ** -0.5
+        if kw["softcap"] > 0:
+            s = kw["softcap"] * jnp.tanh(s / kw["softcap"])
+        row = jnp.arange(Sq)[:, None] + (Skv - Sq)
+        col = jnp.arange(Skv)[None, :]
+        mask = jnp.ones((Sq, Skv), bool)
+        if kw["causal"]:
+            mask &= col <= row
+        if kw["window"] > 0:
+            mask &= col > row - kw["window"]
+        return jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1)
+
+    return np.asarray(run(jnp.asarray(q), jnp.asarray(k)))
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_attention_backward_matches_jax_vjp(case):
+    """The training forward's lse (and both plain forwards', the blockwise
+    recurrence over kv blocks of 16) against ``jax.nn.logsumexp`` of JAX's
+    masked scores: +inf where JAX's row is empty (-inf), else within 2e-5.
+    Then the backward, given that lse or computing its own, against
+    ``jax.vjp``."""
     (q, k, v, do), kw = _inputs(case)
     out, want = _jax_grads(q, k, v, do, kw)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-    o = fa_ops.flash_attention(tq, tk, tv, use_kernel=False, **kw)
+    o, lse = fa_ops.flash_attention_fwd(tq, tk, tv, **kw)
     np.testing.assert_allclose(o.numpy(), out, **TOL)
-    plain = flash_attention_bwd_ref(tq, tk, tv, o, tdo, **kw)
+    want_lse = _jax_lse(q, k, kw)
+    want_lse = np.where(np.isneginf(want_lse), np.inf, want_lse)
+    for got in (lse, flash_attention_ref(tq, tk, tv, return_lse=True, **kw)[1],
+                flash_attention_blockwise(tq, tk, tv, block_k=16, return_lse=True, **kw)[1]):
+        assert got.dtype == torch.float32 and got.shape == want_lse.shape
+        np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want_lse))
+        np.testing.assert_allclose(got.numpy(), want_lse, **TOL)
+    # the plain backward given the forward's lse (as the kernels take it) and
+    # computing its own, and the wrapper on CPU tensors
+    plain = flash_attention_bwd_ref(tq, tk, tv, o, tdo, lse=lse, **kw)
+    own = flash_attention_bwd_ref(tq, tk, tv, o, tdo, **kw)
+    wrapper = fa_ops.flash_attention_bwd(tq, tk, tv, o, lse, tdo, **kw)
     # the Function on the CPU (use_kernel=True: the plain versions of both
-    # kernels), and the plain route differentiated by autograd
+    # kernels), which saves the forward's lse, and the plain route
+    # differentiated by autograd
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
-    before = (fa_ops.launches, fa_ops.bwd_launches)
-    through = torch.autograd.grad(fa_ops.flash_attention(*leaves, use_kernel=True, **kw),
-                                  leaves, tdo)
-    assert (fa_ops.launches, fa_ops.bwd_launches) == before
+    before = (fa_ops.launches, fa_ops.bwd_launches, fa_ops.lse_launches)
+    fn_out = fa_ops.flash_attention(*leaves, use_kernel=True, **kw)
+    saved = fn_out.grad_fn.saved_tensors
+    assert len(saved) == 5 and torch.equal(saved[4], lse)
+    through = torch.autograd.grad(fn_out, leaves, tdo)
+    assert (fa_ops.launches, fa_ops.bwd_launches, fa_ops.lse_launches) == before
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     autograd = torch.autograd.grad(fa_ops.flash_attention(*leaves, use_kernel=False, **kw),
                                    leaves, tdo)
-    for got in (plain, through, autograd):
+    for got in (plain, own, wrapper, through, autograd):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), w, **TOL)
     if case == "no visible column":
         B, H, G, Sq, Skv = CASES[case][:5]
         assert float(plain[0][:, :, :Sq - Skv].abs().max()) == 0.0
+        assert bool(torch.isposinf(lse[:, :, :Sq - Skv]).all())
 
 
 def test_attention_backward_controls_differ():
@@ -100,9 +147,9 @@ def test_attention_backward_controls_differ():
     (q, k, v, do), kw = _inputs("window softcap gqa")
     _, want = _jax_grads(q, k, v, do, kw)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-    o = fa_ops.flash_attention(tq, tk, tv, use_kernel=False, **kw)
-    no_cap = flash_attention_bwd_ref(tq, tk, tv, o, tdo, cap_grad=False, **kw)
-    no_sum = flash_attention_bwd_ref(tq, tk, tv, o, tdo, group_sum=False, **kw)
+    o, lse = fa_ops.flash_attention_fwd(tq, tk, tv, **kw)
+    no_cap = flash_attention_bwd_ref(tq, tk, tv, o, tdo, lse=lse, cap_grad=False, **kw)
+    no_sum = flash_attention_bwd_ref(tq, tk, tv, o, tdo, lse=lse, group_sum=False, **kw)
     assert np.abs(no_cap[0].numpy() - want[0]).max() > 100 * TOL["atol"]
     assert np.abs(no_sum[1].numpy() - want[1]).max() > 100 * TOL["atol"]
 

@@ -953,16 +953,17 @@ def _rel(a, b):
 
 
 def _bwd_inputs(B, H, G, Sq, Skv, D, dtype, seed, causal, window, softcap, qscale=1.0):
-    """q, k, v, the plain forward's o and a cotangent; ``qscale`` widens the
-    scores (x ~ qscale * N(0, 1)) so that a softcap of 50 bends them."""
+    """q, k, v, the forward kernel's o and lse (as a train step hands them to
+    the backward) and a cotangent; ``qscale`` widens the scores (x ~ qscale
+    * N(0, 1)) so that a softcap of 50 bends them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
                for s in ((B, H, Sq, D), (B, G, Skv, D), (B, G, Skv, D)))
     q = (q.float() * qscale).to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    o = fa_ops.flash_attention(q, k, v, use_kernel=False, **kw)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
     do = torch.randn((B, H, Sq, D), generator=g, device="cuda").to(dtype)
-    return q, k, v, o, do, kw
+    return q, k, v, o, lse, do, kw
 
 
 @pytest.mark.parametrize("B,H,G,Sq,Skv,D,dtype,causal,window,softcap,qscale", [
@@ -975,35 +976,102 @@ def _bwd_inputs(B, H, G, Sq, Skv, D, dtype, seed, causal, window, softcap, qscal
     (1, 8, 4, 256, 256, 256, torch.float32, True, 0, 50.0, 20.0),     # the softcap bends
     (1, 8, 4, 384, 384, 256, torch.bfloat16, True, 128, 50.0, 1.0),
     (2, 15, 5, 300, 300, 64, torch.bfloat16, True, 0, 0.0, 1.0),       # smollm's heads
-    (1, 40, 8, 256, 256, 128, torch.bfloat16, True, 0, 0.0, 1.0)])     # qwen3's heads
+    (1, 40, 8, 256, 256, 128, torch.bfloat16, True, 0, 0.0, 1.0),      # qwen3's heads
+    # the bf16 kernels at every head width, with GQA, a window, the causal
+    # offset (Sq < Skv), the softcap, rows with no live column (Sq > Skv),
+    # no causal mask, and Sq and Skv that are no multiple of a tile
+    (2, 4, 2, 100, 100, 32, torch.bfloat16, True, 33, 5.0, 3.0),
+    (1, 4, 4, 70, 130, 32, torch.bfloat16, True, 0, 0.0, 1.0),
+    (1, 6, 3, 90, 40, 64, torch.bfloat16, True, 0, 0.0, 1.0),
+    (1, 4, 2, 131, 77, 64, torch.bfloat16, False, 20, 10.0, 4.0),
+    (1, 8, 2, 190, 257, 128, torch.bfloat16, True, 70, 0.0, 1.0),
+    (2, 2, 1, 150, 50, 128, torch.bfloat16, True, 0, 30.0, 8.0),
+    (1, 4, 2, 65, 200, 256, torch.bfloat16, True, 0, 50.0, 20.0),
+    (1, 2, 1, 201, 129, 256, torch.bfloat16, True, 64, 0.0, 1.0)])
 def test_flash_attention_bwd_kernel_matches_plain(B, H, G, Sq, Skv, D, dtype, causal,
                                                   window, softcap, qscale):
     _card()
-    q, k, v, o, do, kw = _bwd_inputs(B, H, G, Sq, Skv, D, dtype, Sq + D, causal, window,
-                                     softcap, qscale)
+    q, k, v, o, lse, do, kw = _bwd_inputs(B, H, G, Sq, Skv, D, dtype, Sq + D, causal, window,
+                                          softcap, qscale)
     before = fa_ops.bwd_launches
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert fa_ops.bwd_launches == before + 1
-    want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+    want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    own = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw)   # with its own lse
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, own):
         assert a.dtype == dtype and a.shape == b.shape
         assert bool(torch.isfinite(a).all()), name
         assert _rel(a, b) <= GRAD_TOL[dtype], (name, _rel(a, b))
-    if Sq > Skv:    # rows that see no column get a zero gradient
+        assert _rel(a, c) <= GRAD_TOL[dtype], (name, _rel(a, c))
+    if causal and Sq > Skv:    # rows that see no column get a zero gradient
         assert float(got[0][:, :, :Sq - Skv].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("H,G,S,D,window,softcap", [(8, 4, 640, 256, 0, 50.0),
+                                                    (8, 2, 300, 128, 100, 0.0),
+                                                    (6, 3, 200, 64, 0, 0.0),
+                                                    (4, 1, 150, 32, 0, 20.0)])
+def test_flash_attention_bwd_kernel_is_deterministic(H, G, S, D, window, softcap):
+    """No float atomics: two calls give the same bytes."""
+    _card()
+    q, k, v, o, lse, do, kw = _bwd_inputs(1, H, G, S, S, D, torch.bfloat16, 7, True, window,
+                                          softcap)
+    first = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,G,Sq,Skv,D,window,softcap,qscale", [
+    (8, 4, 300, 300, 256, 0, 50.0, 20.0), (4, 2, 100, 170, 128, 30, 0.0, 1.0),
+    (6, 3, 90, 40, 64, 0, 0.0, 1.0), (2, 1, 77, 77, 32, 0, 5.0, 3.0)])
+def test_flash_attention_forward_lse_matches_plain(dtype, H, G, Sq, Skv, D, window, softcap,
+                                                    qscale):
+    """The forward kernels' lse (bf16 prefill and fp32) against the plain
+    route's: +inf on the same rows (none live), else within 1e-4 (fp32) or
+    2e-2 (bf16, whose softcap takes tanh.approx.f32: ~2^-11 of c in s)."""
+    _card()
+    q, k, v, o, lse, _, kw = _bwd_inputs(1, H, G, Sq, Skv, D, dtype, 11, True, window,
+                                         softcap, qscale)
+    want_o, want = fa_ops.flash_attention_fwd(*(t.cpu() for t in (q, k, v)), **kw)
+    assert lse.shape == (1, H, Sq) and lse.dtype == torch.float32
+    lse = lse.cpu()
+    empty = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), empty) and bool((lse[empty] > 0).all())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert float((lse[~empty] - want[~empty]).abs().max()) <= tol
+    o_tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.cpu().float(), want_o.float(), rtol=o_tol, atol=o_tol)
+
+
+def test_flash_attention_serving_call_writes_no_lse():
+    """A serving call (no grad) launches the forward without an lse; under
+    grad the same call launches it with one."""
+    _card()
+    q, k, v, _, _, _, kw = _bwd_inputs(1, 8, 4, 200, 200, 256, torch.bfloat16, 3, True, 0,
+                                       50.0)
+    before = (fa_ops.launches, fa_ops.lse_launches)
+    with torch.no_grad():
+        fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches - before[0], fa_ops.lse_launches - before[1]) == (1, 0)
+    leaf = q.clone().requires_grad_()
+    fa_ops.flash_attention(leaf, k, v, **kw)
+    assert (fa_ops.launches - before[0], fa_ops.lse_launches - before[1]) == (2, 1)
 
 
 def test_flash_attention_bwd_controls_are_rejected():
     """The check above rejects a backward without the softcap's factor and a
     dK without the sum over the group's heads."""
     _card()
-    q, k, v, o, do, kw = _bwd_inputs(1, 8, 4, 256, 256, 256, torch.bfloat16, 5, True, 0,
-                                     50.0, qscale=20.0)
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
-    want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, **kw)
-    no_cap = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, cap_grad=False, **kw)
-    no_sum = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, group_sum=False, **kw)
+    q, k, v, o, lse, do, kw = _bwd_inputs(1, 8, 4, 256, 256, 256, torch.bfloat16, 5, True, 0,
+                                          50.0, qscale=20.0)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    no_cap = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, cap_grad=False, **kw)
+    no_sum = fa_ops.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, group_sum=False, **kw)
     tol = GRAD_TOL[torch.bfloat16]
     assert max(_rel(a, b) for a, b in zip(got, want)) <= tol
     assert _rel(no_cap[0], want[0]) > tol and _rel(no_sum[1], want[1]) > tol
@@ -1013,8 +1081,8 @@ def test_flash_attention_function_grads_on_the_card():
     """Under grad the kernel route goes through FlashAttention: one forward
     and one backward launch, gradients equal to the plain route's autograd."""
     _card()
-    q, k, v, _, do, kw = _bwd_inputs(1, 4, 2, 200, 200, 64, torch.float32, 3, True, 50,
-                                     30.0)
+    q, k, v, _, _, do, kw = _bwd_inputs(1, 4, 2, 200, 200, 64, torch.float32, 3, True, 50,
+                                        30.0)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     f0, b0 = fa_ops.launches, fa_ops.bwd_launches
     out = fa_ops.flash_attention(*leaves, **kw)
@@ -1046,6 +1114,25 @@ def test_fm_pairwise_bwd_kernel_matches_plain(B, F, D, dtype):
     leaf = e.clone().requires_grad_()
     (through,) = torch.autograd.grad(fm_ops.fm_pairwise(leaf), leaf, cot)
     assert torch.equal(through, got)
+
+
+def test_dedup_row_grads_is_deterministic_on_the_card():
+    """The sparse update's segment sum over duplicate rows gives the same
+    bytes from call to call (Zipf-like ids: thousands of duplicates a hot
+    row), so FM's sparse step is reproducible."""
+    from repro_torch.optim import dedup_row_grads
+
+    _card()
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(np.minimum(rng.zipf(1.1, 200_000), 50_000)).cuda()
+    grads = torch.from_numpy(rng.normal(size=(200_000, 10)).astype(np.float32)).cuda()
+    first = dedup_row_grads(ids, grads, 50_001)
+    second = dedup_row_grads(ids, grads, 50_001)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    # the CPU's sums, in another order: up to ~10^4 N(0, 1) terms a row
+    cpu = dedup_row_grads(ids.cpu(), grads.cpu(), 50_001)
+    assert torch.equal(first[0].cpu(), cpu[0])
+    torch.testing.assert_close(first[1].cpu(), cpu[1], rtol=1e-4, atol=1e-3)
 
 
 def test_lm_train_step_kernel_route_matches_plain_route():

@@ -52,7 +52,9 @@ def _imports(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("root", ["src/repro_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("root", ["src/repro_torch", "chip_smoke.py",
+                                  "scripts/fm_forward_sweep.py",
+                                  "scripts/attention_bwd_sweep.py"])
 def test_no_source_names_jax_or_repro(root):
     p = ROOT / root
     files = sorted(p.rglob("*.py")) if p.is_dir() else [p]
