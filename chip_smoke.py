@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's recsys, LM and QAC serving paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's recsys, LM, MoE, GNN and QAC paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--queries N] [--vocab V] [--batch B] [--seed S] [--train]
+    python3 chip_smoke.py [--queries N] [--vocab V] [--batch B] [--seed S]
+                          [--train | --moe | --gnn | --probe]
 
 Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
@@ -163,7 +164,45 @@ Phases, each printing its lines before the next starts:
      dense step of DIN, BST and MIND at full width (B=4,096, no kernel);
      (d) ``repro_torch.launch.train.main`` with ``--drill`` (one restart,
      the loss falling);
- 12. one JSON line naming every kernel with its launches, times and bound.
+ 12. the MoE archs (``moe_phase``): qwen2-moe-a2.7b at full width (24 layers,
+     d_model 2048, 60 experts padded to 64, top-4, the shared expert, vocab
+     151,936; random weights from the port's generator) in bf16: the median
+     ms of 3 ``prefill_step``s at B=1, S=32,768 and tokens/s, ``decode_step``
+     at B=16 against a 4,096-token cache (decode_32k's 32,768 cut: 16 x
+     32,768 rows of its cache are 103 GB), ms per step over 32 steps, one
+     traced call of each (busy share, flash_attention's ms, one layer's MoE
+     block traced alone on its input from the call, launches), peak memory;
+     each held against the plain route (``RouteLog``): the expert choices
+     that differ between the two routes counted; in fp32 (2 layers, no
+     TF32) every logit of the plain route replaying the kernel route's
+     choices, and the sequences whose routing agreed, within 1e-3; in bf16
+     (prefill B=2 S=4,096, 4 decode steps against the same 4,096-token
+     cache, one cache alive at a time) the floor rule: the kernel route
+     within 1.5x the bf16 plain route's distance from the fp32-activation
+     plain route, both replaying the kernel's choices, and a control 32
+     cache columns short rejected by it; the bf16 logits of agreeing
+     sequences against atol 0.25 are only reported (no sequence has agreed
+     in every layer so far); qwen3-moe-235b-a22b at full width and 4 of 94
+     layers (one layer holds 4.98 GB), one prefill at S=4,096 and 8 decode
+     steps at B=16, held the same way; the MoE train step, qwen2-moe at 4 of
+     24 layers, B=1, S=4,096 (train_4k's sequence), remat and AdamW: loss
+     and gradients against the plain route on the kernel's routing (1e-2,
+     5e-2 of each gradient's norm), two passes and one step twice from one
+     start bit-identical, ms per step, tokens/s, the aux term's share of the
+     loss, a traced step; one flash_attention launch a layer a call (and
+     one flash_attention_bwd in training), none on the plain route;
+ 13. MACE (``mace_phase``): its base config (2 layers, C = 128) trained in
+     fp32 at GNN_SHAPES' molecule (128 molecules of 30 atoms), full_graph_sm
+     (a 2,708-node graph, 1,433 features) and minibatch_lg (1,024 seeds of a
+     232,965-node / 114,615,892-edge graph at fanout (15, 10), padded to
+     172,032 nodes and 169,984 edges), data from the port's
+     ``data/graphs.py``: ms per step, peak memory, a traced step's busy
+     share, one step twice from one start bit-identical, loss, gradients
+     and parameters after a step within 1e-4 (norm-relative) of the same
+     step on the CPU at the two small shapes, the energy unchanged by a
+     rotation at molecule (rtol 2e-4); ogb_products reported as waiting for
+     the port's distribution work;
+ 14. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
 """
@@ -240,12 +279,14 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
                    "src/repro/kernels/fm_pairwise/kernel.py:27", ("recsys",)),
     "flash_attention": ("repro_torch.kernels.flash_attention.ops", "launches",
                         "src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:93", ("lm", "train")),
+                        "src/repro/kernels/flash_attention/kernel.py:93",
+                        ("lm", "train", "moe", "moe_train")),
     # the gradients of the two TPU kernels on the training path (the JAX
     # package differentiates their references by autodiff)
     "flash_attention_bwd": ("repro_torch.kernels.flash_attention.ops", "bwd_launches",
                             "src/repro_torch/csrc/flash_attention_bwd.cu",
-                            "src/repro/kernels/flash_attention/kernel.py:93", ("train",)),
+                            "src/repro/kernels/flash_attention/kernel.py:93",
+                            ("train", "moe_train")),
     "fm_pairwise_bwd": ("repro_torch.kernels.fm_pairwise.ops", "bwd_launches",
                         "src/repro_torch/csrc/fm_pairwise.cu",
                         "src/repro/kernels/fm_pairwise/kernel.py:27", ("train",)),
@@ -266,7 +307,9 @@ ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_topk"),
                  "recsys": ("fm_forward",),
                  "lm": ("flash_attention",),
                  "train": ("flash_attention", "flash_attention_bwd", "fm_pairwise",
-                           "fm_pairwise_bwd")}
+                           "fm_pairwise_bwd"),
+                 "moe": ("flash_attention",),
+                 "moe_train": ("flash_attention", "flash_attention_bwd")}
 # the __global__ each wrapper launches, as the profiler names it
 TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               "heap_topk": "heap_topk_kernel<qac::RawLookup>",
@@ -292,6 +335,7 @@ TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               "flash_attention_bwd": "fa_bwd_",
               "fm_pairwise_bwd": "fm_pairwise_bwd_kernel<"}
 FM_TOL = dict(rtol=1e-5, atol=1e-6)        # FM logits, and the kernel vs plain
+FWD_TRACE_REPS = 10                        # forwards in phase 3's traced-forward breakdowns
 FLOAT_TOL = dict(rtol=1e-4, atol=1e-5)     # DIN, BST and MIND
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # rtol = atol, tests/test_kernels.py
 # The same cases held row by row against the scale of each row's own output:
@@ -705,6 +749,34 @@ def counter(torch, reset_counts, read_counts, kernel, phase, total=None):
     return counted_run
 
 
+def counted_exact(torch, reset_counts, read_counts, phase):
+    """-> run(fn, want, total=None): fn() with every launch count set to 0
+    just before and read just after; the run must launch exactly ``want``
+    (kernel -> count) and nothing else. Adds the counts to ``total`` when
+    one is given."""
+    def run(fn, want: dict, total=None):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        if any(c != want.get(name, 0) for name, c in got.items()):
+            fail(f"{phase}: a run launched {got}; it launches {want} only")
+        if total is not None:
+            for name, c in got.items():
+                total[name] = total.get(name, 0) + c
+        return out
+    return run
+
+
+def fill_cache(torch, g, cache, pos):
+    """Seeded normal x 0.02 in every row of a KV cache; its rows at ``pos``."""
+    with torch.inference_mode():
+        for t in (*cache["k"], *cache["v"]):
+            t.normal_(generator=g).mul_(0.02)
+        cache["pos"].copy_(torch.tensor(pos, dtype=torch.int32))
+    return cache
+
+
 # --------------------------------------------------------------------------
 # phase 3: recsys serving
 # --------------------------------------------------------------------------
@@ -860,10 +932,14 @@ def recsys_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict
             t_comp = median_ms(torch, lambda: composed(ids), 20)
             model.use_kernel = True
             t_kernel = median_ms(torch, lambda: model(feats), 20)
-            events = device_times(traced(torch, lambda: model(feats), 1,
-                                         TRACE_TAGS["fm_forward"], 1)[0])
-            comp_events = device_times(traced(torch, lambda: composed(ids), 1,
-                                              TRACE_TAGS["fm_pairwise"], 1)[0])
+            # per forward, over FWD_TRACE_REPS of them: a window holding one
+            # launch of a few us came back empty three times in one run
+            n = FWD_TRACE_REPS
+            events, comp_events = (
+                [(d / n, key, round(c / n)) for d, key, c in
+                 device_times(traced(torch, fn, n, TRACE_TAGS[tag], n)[0])]
+                for fn, tag in ((lambda: model(feats), "fm_forward"),
+                                (lambda: composed(ids), "fm_pairwise")))
             mem = {"fused": peak_bytes(lambda: model(feats)),
                    "composition": peak_bytes(lambda: composed(ids))}
             hold_forward(f"{shape} B={B} F={n_f} D={D} fp32", ids, model.tables,
@@ -1083,13 +1159,7 @@ def lm_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
         fail(f"the token stream holds {len(stream.tokens)} tokens")
     toks = torch.from_numpy(stream.tokens[:S].copy()).to(dev)[None]
 
-    def fill(cache, pos):
-        """Seeded normal x 0.02 in every cache row; the rows at ``pos``."""
-        with torch.inference_mode():
-            for t in (*cache["k"], *cache["v"]):
-                t.normal_(generator=g).mul_(0.02)
-            cache["pos"].copy_(torch.tensor(pos, dtype=torch.int32))
-        return cache
+    fill = functools.partial(fill_cache, torch, g)
 
     def route_of(model, base):
         def use(flash):
@@ -1552,19 +1622,7 @@ def train_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
     S = LM_SHAPES["train_4k"]["seq"]
     bf16 = torch.bfloat16
 
-    def counted(fn, want: dict, total=None):
-        """fn() with every count 0 just before and read just after; the run
-        launches exactly ``want`` (kernel -> count) and nothing else."""
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        got = read_counts()
-        if any(c != want.get(name, 0) for name, c in got.items()):
-            fail(f"training: a run launched {got}; it launches {want} only")
-        if total is not None:
-            for name, c in got.items():
-                total[name] = total.get(name, 0) + c
-        return out
+    counted = counted_exact(torch, reset_counts, read_counts, "training")
 
     # -- (a) the backward kernels against their plain versions -----------------
     def bwd_case(case, Hq, Gk, Sq, Dh, dtype, *, window=0, softcap=0.0, qscale=1.0,
@@ -1858,6 +1916,727 @@ def train_phase(torch, dev, seed, smi, hold, reset_counts, read_counts) -> dict:
         f"process: {done[0]} ({wall:.1f} s wall); phase took "
         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
     return main
+
+
+# --------------------------------------------------------------------------
+# phase 12: the MoE archs
+# --------------------------------------------------------------------------
+# Routing flips: a bf16 (or fp32) rounding difference between the kernel
+# route and the plain route can flip a near-tie expert choice, and through
+# the experts' capacity that moves other tokens too. So each parity check
+# runs three routes: the kernel route (its routing recorded), the plain
+# route routing itself (the choices that differ are counted, and the
+# logits held only on the sequences whose routing agreed in every layer,
+# with no drop in a layer where any choice differed), and the plain route
+# replaying the kernel route's expert choices (gates from its own router):
+# there every logit is held, so a flip neither hides a fault nor fails a
+# sound kernel.
+MOE_BF16_TOL = dict(rtol=5e-2, atol=0.25)   # LM_BF16_TOL, gemma2's bf16 floor x 1.5: reported
+MOE_FP32_TOL = dict(rtol=1e-3, atol=1e-3)   # LM_FP32_TOL
+# In bf16 the check is lm_phase's floor rule, measured on each call: the
+# plain route with fp32 activations on the same bf16 weights, routed by the
+# kernel route's choices, is the reference; the kernel route must be within
+# MOE_FLOOR_X x the bf16 plain route's own distance from it (the floor), and
+# a control reading FLASH_DROP cache columns too few in every decode
+# attention must not be. qwen2-moe's 24 bf16 layers carry more rounding to
+# the logits than gemma2's did: a sound decode step read 0.336 against the
+# replayed plain route, beyond MOE_BF16_TOL's atol.
+MOE_FLOOR_X = 1.5
+MOE_CACHE = 4096            # decode's cache: 16 x 32,768 rows of qwen2-moe's is 103 GB
+MOE_PAR_SEQ = 4096          # the parity prefills' and qwen3-moe's sequence
+MOE_B_DEC = 16
+MOE_DEC_STEPS = 32          # timed decode steps
+QWEN3_MOE_LAYERS = 4        # of 94: one layer holds 4.98 GB of bf16 weights
+MOE_TRAIN_LAYERS = 4        # of qwen2-moe's 24 in the train step (AdamW's fp32 moments)
+MOE_TRAIN_STEPS = 3
+
+
+class RouteLog:
+    """Wraps ``model._route`` while open: records each layer's (idx, gates,
+    aux), keyed by the layer's router storage (a recompute under remat
+    writes the same layer again); with ``replay``, routes every layer by
+    that log's idx, its gates taken from this route's own router."""
+
+    def __init__(self, torch, model, replay=None):
+        self.torch, self.model, self.replay, self.seen = torch, model, replay, {}
+
+    def __enter__(self):
+        torch, orig, m = self.torch, self.model._route, self.model.cfg.moe
+
+        def route(lp, h2d):
+            key = lp["router"].data_ptr()
+            idx, gates, aux = orig(lp, h2d)
+            if self.replay is not None:
+                idx = self.replay.seen[key][0]
+                probs = torch.softmax(h2d.float() @ lp["router"], dim=-1)
+                gates = probs.gather(1, idx)
+                if m.norm_topk:
+                    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+            self.seen[key] = (idx.detach(), gates, aux.detach())
+            return idx, gates, aux
+
+        self.model._route = route
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._route
+
+    def aux(self):
+        return sum(float(a) for _, _, a in self.seen.values())
+
+
+def route_agreement(torch, a, b, rows, capacity, n_experts):
+    """(choices that differ, [sequence b agreed in every layer]) between two
+    RouteLogs of one call; ``rows`` [(lo, hi)] are each sequence's token rows.
+    A layer where any choice differs and either route dropped a token breaks
+    every sequence (capacity couples them)."""
+    diff, ok = 0, [True] * len(rows)
+    for key, (ia, _, _) in a.seen.items():
+        ib = b.seen[key][0]
+        bad = ia != ib
+        n = int(bad.sum())
+        diff += n
+        drops = any(int(torch.bincount(i.reshape(-1), minlength=n_experts).max()) > capacity
+                    for i in (ia, ib))
+        for s, (lo, hi) in enumerate(rows):
+            if (n and drops) or bool(bad[lo:hi].any()):
+                ok[s] = False
+    return diff, ok
+
+
+def moe_phase(torch, dev, seed, smi, reset_counts, read_counts) -> dict:
+    """qwen2-moe-a2.7b at full width (24 layers, 60 experts padded to 64,
+    top-4, the shared expert) served in bf16: prefill at B=1, S=32,768,
+    decode at B=16 against a 4,096-token cache, each held against the plain
+    route (``RouteLog``), traced, with peak memory; the fp32 check at 2
+    layers; qwen3-moe-235b-a22b at full width and 4 of 94 layers; the MoE
+    train step at 4 layers. Returns the launch counts of the main paths:
+    {"moe": one bf16 prefill_step and one decode_step of qwen2-moe,
+    "moe_train": its counted train steps}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import LM_SHAPES
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.transformer import TransformerLM, moe_capacity
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve.lm import prefill_step
+    from repro_torch.train import init_train_state, make_lm_train_step
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = LM_SHAPES["prefill_32k"]["seq"]
+    S_train = LM_SHAPES["train_4k"]["seq"]
+    B = MOE_B_DEC
+    base = get_arch("qwen2-moe-a2.7b").cfg
+    stream = TokenStream.synthetic(vocab=base.vocab, n_docs=400, seed=seed)
+    if len(stream.tokens) < 4 * S + S_train + 1:
+        fail(f"the token stream holds {len(stream.tokens)} tokens")
+    counts = {"moe": {}, "moe_train": {}}
+    main_run = counter(torch, reset_counts, read_counts, "flash_attention", "moe",
+                       counts["moe"])
+    check_run = counter(torch, reset_counts, read_counts, "flash_attention", "moe")
+    rng = np.random.default_rng(seed)
+
+    def gib(n):
+        return f"{n / 2**30:.2f} GiB"
+
+    def toks_of(B_, S_, off=0):
+        n = B_ * S_
+        return torch.from_numpy(stream.tokens[off:off + n].reshape(B_, S_).copy()).to(dev)
+
+    fill = functools.partial(fill_cache, torch, g)
+
+    def use(model, base, flash):
+        model.cfg = dataclasses.replace(base, use_flash=flash)
+
+    def route_cfg(base, route):
+        """The config of a parity route: the kernel route, or the plain one
+        (``floor``: fp32 activations on the same bf16 weights)."""
+        flash = None if route in ("kernel", "short") else False
+        cfg = dataclasses.replace(base, use_flash=flash)
+        return dataclasses.replace(cfg, dtype=torch.float32) if route == "floor" else cfg
+
+    def judge(base, outs, rk, diff, ok, what):
+        """Holds one call's routes (see MOE_BF16_TOL); ``ok``: the sequences
+        whose routing agreed. Returns its record."""
+        held = [s for s, k in enumerate(ok) if k]
+        k, p, r = outs["kernel"], outs["plain"], outs["replay"]
+        if not bool(torch.isfinite(k).all()):
+            fail(f"moe {what}: the kernel route's logits are not finite")
+        rec = {"choices_differing": diff, "choices": sum(i.numel() for i, _, _ in
+                                                         rk.seen.values()),
+               "agreeing": len(held), "sequences": len(ok),
+               "kernel_vs_replay": float((k - r).abs().max()),
+               "kernel_vs_plain_agreeing": float((k[held] - p[held]).abs().max())
+               if held else None}
+        if base.dtype == torch.float32:
+            if not torch.allclose(k, r, **MOE_FP32_TOL) or (
+                    held and not torch.allclose(k[held], p[held], **MOE_FP32_TOL)):
+                fail(f"moe {what}: the kernel and the plain route differ: {rec}")
+            verdict = f"within {MOE_FP32_TOL} on the replay and the agreeing sequences"
+        else:
+            f = outs["floor"]
+            rec.update(floor=float((r - f).abs().max()), kernel_vs_floor=float((k - f).abs().max()))
+            if "short" in outs:
+                rec["control"] = float((outs["short"] - f).abs().max())
+                if not rec["control"] > MOE_FLOOR_X * rec["floor"]:
+                    fail(f"moe {what}: the check passes a kernel {FLASH_DROP} columns short: {rec}")
+            if not rec["kernel_vs_floor"] <= MOE_FLOOR_X * rec["floor"]:
+                fail(f"moe {what}: the kernel route is {rec['kernel_vs_floor']:.3g} from the "
+                     f"fp32-activation plain route, beyond {MOE_FLOOR_X} x the bf16 plain "
+                     f"route's {rec['floor']:.3g}: {rec}")
+            rec["agreeing_within_atol_0.25"] = bool(
+                held and torch.allclose(k[held], p[held], **MOE_BF16_TOL)) if held else None
+            verdict = (f"kernel route {rec['kernel_vs_floor']:.3g} from the fp32-activation "
+                       f"plain route (the kernel's choices), within {MOE_FLOOR_X} x the bf16 "
+                       f"plain route's floor {rec['floor']:.3g}"
+                       + (f"; control ({FLASH_DROP} cache columns short) {rec['control']:.3g}, "
+                          f"rejected" if "control" in rec else "")
+                       + f"; kernel vs bf16 plain on the agreeing sequences within "
+                       f"{MOE_BF16_TOL}: {rec['agreeing_within_atol_0.25']}")
+        say(f"[moe] {what}: {diff} of {rec['choices']} expert choices differ between the "
+            f"kernel and the plain route; {len(held)} of {len(ok)} sequences agreed in every "
+            f"layer; max |logit diff|: kernel vs plain on the kernel's choices "
+            f"{rec['kernel_vs_replay']:.3g}, on the agreeing sequences "
+            f"{'n/a' if not held else format(rec['kernel_vs_plain_agreeing'], '.3g')}; "
+            f"{verdict}")
+        return rec
+
+    def prefill_parity(model, base, toks, L, what):
+        """One ``prefill_step`` through every parity route (RouteLog)."""
+        routes = ("kernel", "plain", "replay") + (("floor",) if base.dtype != torch.float32
+                                                  else ())
+        outs, logs = {}, {}
+        for route in routes:
+            model.cfg = route_cfg(base, route)
+            replay = logs["kernel"] if route in ("replay", "floor") else None
+            with RouteLog(torch, model, replay=replay) as log:
+                outs[route] = check_run(lambda: prefill_step(model, toks),
+                                        L if route == "kernel" else 0)
+            logs[route] = log
+        model.cfg = base
+        B_, S_ = toks.shape
+        diff, ok = route_agreement(torch, logs["kernel"], logs["plain"],
+                                   [(b * S_, (b + 1) * S_) for b in range(B_)],
+                                   moe_capacity(B_ * S_, base.moe), base.moe.n_experts)
+        return judge(base, outs, logs["kernel"], diff, ok, what)
+
+    def trace(fn, wall, what, L, layer_fn=None):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = device_times(prof)
+        busy = sum(d for d, _, _ in events) / 1e3
+        launches = sum(c for _, _, c in events)
+        att = [(d, c) for d, key, c in events if TRACE_TAGS["flash_attention"] in key]
+        moe_ms = moe_launches = None
+        if layer_fn is not None:    # one layer's MoE block alone, on its input from the call
+            with torch.inference_mode():
+                us, moe_launches = call_device_us(torch, layer_fn, 5)
+            moe_ms = us / 1e3 * L
+        share = f"{busy / wall:.4f}" if busy else "not measured"
+        say(f"[trace] moe {what}: device busy {busy:.2f} ms of {wall:.2f} ms untraced wall, "
+            f"busy share {share}; {launches} device launches; flash_attention "
+            f"{sum(d for d, _ in att) / 1e3:.2f} ms in {sum(c for _, c in att)} launches"
+            + (f"; the MoE block (router, experts, shared expert) {moe_ms:.2f} ms "
+               f"({moe_launches:.0f} launches a layer x {L} layers; one layer traced alone "
+               f"over 5 calls after a warm-up step)"
+               if moe_ms is not None else "") + f" on {smi}")
+        for d, key, count in events[:8]:
+            say(f"[trace]   {d / 1e3:9.3f} ms  {count:5d} x  {key[:90]}")
+        return {"busy_ms": busy, "share": busy / wall if busy else None, "launches": launches,
+                "flash_ms": sum(d for d, _ in att) / 1e3, "moe_block_ms": moe_ms,
+                "moe_block_launches_per_layer": moe_launches}
+
+    def capture_mlp_input(model):
+        """The first MoE block's (lp, x) of the next call."""
+        got, orig = {}, model._moe_mlp
+
+        def grab(lp, x):
+            if "args" not in got:
+                got["args"] = (lp, x.clone())
+            return orig(lp, x)
+        model._moe_mlp = grab
+        return got
+
+    def seeded_cache(model, n, pos, cache_seed, dtype):
+        """``model.init_cache(len(pos), n)`` in the model's current dtype,
+        every row drawn as ``fill_cache`` draws it in ``dtype`` from a
+        generator seeded with ``cache_seed`` (a wider cache holds the same
+        values), its rows at ``pos``: each call gives the same cache."""
+        cache = model.init_cache(len(pos), n)
+        gen = torch.Generator(device=dev).manual_seed(cache_seed)
+        with torch.inference_mode():
+            for t in (*cache["k"], *cache["v"]):
+                if t.dtype == dtype:
+                    t.normal_(generator=gen).mul_(0.02)
+                else:
+                    t.copy_(torch.empty(t.shape, dtype=dtype, device=dev)
+                            .normal_(generator=gen).mul_(0.02))
+            cache["pos"].copy_(torch.tensor(pos, dtype=torch.int32))
+        return cache
+
+    def decode_parity(model, base, n, pos, cache_seed, tok, steps, L, what):
+        """``steps`` decode steps of the kernel route from a ``seeded_cache``
+        of ``n`` tokens, its expert choices, logits and tokens kept; then
+        each other route in turn over the same steps, on the same cache made
+        anew (fp32 for the floor route), fed the kernel route's tokens; the
+        control (bf16: every attention FLASH_DROP cache columns short) at
+        the first step. One cache is alive at a time. A row whose routing
+        differed once leaves the agreeing rows (its cache then differs)."""
+        bf16 = base.dtype != torch.float32
+        routes = ("kernel", "plain", "replay") + (("floor", "short") if bf16 else ())
+        Bd = tok.shape[0]
+        toks, outs, logs = [tok], [{} for _ in range(steps)], [{} for _ in range(steps)]
+        orig = fa_ops.flash_decode
+        for route in routes:
+            model.cfg = route_cfg(base, route)
+            cache = seeded_cache(model, n, pos, cache_seed, base.dtype)
+            if route == "short":
+                fa_ops.flash_decode = lambda q, k, v, kv_len, **kw: orig(
+                    q, k, v, torch.clamp(kv_len - FLASH_DROP, min=1), **kw)
+            try:
+                for step in range(1 if route == "short" else steps):
+                    replay = (logs[step]["kernel"] if route in ("replay", "floor", "short")
+                              else None)
+                    with RouteLog(torch, model, replay=replay) as log:
+                        outs[step][route], cache = check_run(
+                            functools.partial(model.decode_step, cache, toks[step]),
+                            L if route in ("kernel", "short") else 0)
+                    logs[step][route] = log
+                    if route == "kernel":
+                        toks.append(outs[step]["kernel"].argmax(-1))
+            finally:
+                fa_ops.flash_decode = orig
+                model.cfg = base
+            del cache
+            torch.cuda.empty_cache()
+        alive, recs = list(range(Bd)), []
+        for step in range(steps):
+            diff, ok = route_agreement(torch, logs[step]["kernel"], logs[step]["plain"],
+                                       [(b, b + 1) for b in range(Bd)],
+                                       moe_capacity(Bd, base.moe), base.moe.n_experts)
+            alive = [b for b in alive if ok[b]]
+            recs.append(judge(base, outs[step], logs[step]["kernel"], diff,
+                              [b in alive for b in range(Bd)],
+                              f"{what} decode step {step} at B={Bd}"))
+        return recs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- qwen2-moe, fp32 at 2 layers: kernel route vs plain route -------------------
+    cfg32 = dataclasses.replace(base, n_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    model = TransformerLM(cfg32, device=dev, seed=seed)
+    S32 = MOE_PAR_SEQ
+    t = toks_of(2, S32)
+    prefill_parity(model, cfg32, t, 2, f"qwen2-moe fp32 (2 layers, no TF32) prefill_step "
+                   f"B=2 S={S32}")
+    pos32 = [S32 - 8, S32 // 4]
+    decode_parity(model, cfg32, S32, pos32, seed + 1, toks_of(1, 2, off=10_000)[0], 4, 2,
+                  f"qwen2-moe fp32 (2 layers) from pos {pos32} of a {S32}-token cache,")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- qwen2-moe at full width in bf16 ---------------------------------------------
+    cfg = base
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg, device=dev, seed=seed)
+    w_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    toks = toks_of(1, S)
+    t_pre = median_ms(torch, lambda: prefill_step(model, toks), 3)
+    logits = main_run(lambda: prefill_step(model, toks), L)
+    if logits.shape != (1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"moe prefill: logits of shape {tuple(logits.shape)}")
+    say(f"[moe] qwen2-moe-a2.7b bf16 at full width ({L} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts padded to {cfg.moe.e_padded}, top-{cfg.moe.top_k}, shared "
+        f"expert {cfg.moe.shared_d_ff}, vocab {cfg.vocab}): {n_params / 1e9:.2f}B parameters, "
+        f"{gib(w_bytes)}; prefill_step B=1 S={S}: {t_pre:.2f} ms "
+        f"(median of 3), {S / t_pre * 1e3:.0f} tokens/s, {L} flash_attention launches, "
+        f"capacity {moe_capacity(S, cfg.moe)} a expert, on {smi}")
+    grab = capture_mlp_input(model)
+    pre_trace = trace(lambda: prefill_step(model, toks), t_pre, f"prefill_step B=1 S={S}", L,
+                      lambda: model._moe_mlp(*grab["args"]))
+    del model._moe_mlp
+    S_par = MOE_PAR_SEQ
+    tp = toks_of(2, S_par, off=S)
+    pre_rec = prefill_parity(model, cfg, tp, L, f"qwen2-moe bf16 prefill_step B=2 S={S_par}")
+    del grab, toks
+    torch.cuda.empty_cache()
+
+    tok = toks_of(1, B, off=S + 2 * S_par)[0]
+    dec_pos = rng.integers(MOE_CACHE // 2, MOE_CACHE - MOE_CACHE // 64, B)
+    dec_recs = decode_parity(model, cfg, MOE_CACHE, dec_pos.tolist(), seed + 2, tok, 4, L,
+                             f"qwen2-moe bf16 against a {MOE_CACHE}-token cache,")
+    cache = fill(model.init_cache(B, MOE_CACHE), dec_pos.tolist())
+    c_bytes = sum(t.numel() * t.element_size() for t in (*cache["k"], *cache["v"]))
+    got, cache = main_run(functools.partial(model.decode_step, cache, tok), L)
+    nxt = got.argmax(-1)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(MOE_DEC_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, nxt)
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t_dec = float(np.median(walls)) * 1e3
+    say(f"[moe] qwen2-moe bf16 decode_step B={B} against a {MOE_CACHE}-token cache (rows at "
+        f"pos {int(dec_pos.min())}..{int(dec_pos.max())}; decode_32k's 32,768 cut: 16 x 32,768 "
+        f"rows are 103 GB): {t_dec:.2f} ms/step (median of {MOE_DEC_STEPS}), "
+        f"{B / t_dec * 1e3:.0f} tokens/s, capacity {moe_capacity(B, cfg.moe)} a expert, "
+        f"{L} flash_attention launches a step, on {smi}")
+    grab = capture_mlp_input(model)
+    dec_trace = trace(lambda: model.decode_step(cache, nxt), t_dec,
+                      f"decode_step B={B} against {MOE_CACHE}", L,
+                      lambda: model._moe_mlp(*grab["args"]))
+    del model._moe_mlp, grab
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[moe] qwen2-moe bf16: {gib(w_bytes)} of weights, {gib(c_bytes)} of cache at "
+        f"B={B} x {MOE_CACHE}, peak {gib(peak)} allocated; main-path launches {counts['moe']}")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+
+    # -- qwen3-moe-235b-a22b at full width, 4 of 94 layers ----------------------------
+    cfg3 = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").cfg, n_layers=QWEN3_MOE_LAYERS)
+    L3 = cfg3.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg3, device=dev, seed=seed)
+    w3 = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    t3 = toks_of(1, MOE_PAR_SEQ, off=3 * S)
+    t_pre3 = median_ms(torch, lambda: prefill_step(model, t3), 3)
+    q3_pre = prefill_parity(model, cfg3, t3, L3, f"qwen3-moe bf16 ({L3} of 94 layers) "
+                            f"prefill_step B=1 S={MOE_PAR_SEQ}")
+    q3_dec = decode_parity(model, cfg3, MOE_CACHE, dec_pos.tolist(), seed + 3, tok, 8, L3,
+                           f"qwen3-moe bf16 ({L3} of 94 layers)")
+    cache3 = fill(model.init_cache(B, MOE_CACHE), dec_pos.tolist())
+    t_dec3 = median_ms(torch, lambda: model.decode_step(cache3, tok), 8)
+    say(f"[moe] qwen3-moe-235b-a22b bf16 at full width, {L3} of 94 layers (one layer holds "
+        f"4.98 GB; all 94 ~468 GB), 128 experts top-8 norm_topk, qk-norm, GQA 64/4 (rep 16 in "
+        f"the decode kernel): {gib(w3)} of weights; prefill_step B=1 S={MOE_PAR_SEQ} {t_pre3:.2f} ms "
+        f"(median of 3), decode_step B={B} against {MOE_CACHE} {t_dec3:.2f} ms (median of 8), "
+        f"peak {gib(torch.cuda.max_memory_allocated())} on {smi}")
+    del model, cache3
+    torch.cuda.empty_cache()
+
+    # -- the MoE train step: qwen2-moe at full width, 4 of 24 layers ----------------------
+    counted = counted_exact(torch, reset_counts, read_counts, "moe train")
+
+    def grads(model, base, flash, replay=None):
+        model.cfg = dataclasses.replace(base, use_flash=flash)
+        try:
+            with RouteLog(torch, model, replay=replay) as log:
+                loss = model.loss_fn(batch["tokens"], batch["targets"], batch["mask"])
+                gr = torch.autograd.grad(loss, list(model.parameters()))
+            return loss.detach(), gr, log
+        finally:
+            model.cfg = base
+
+    def hold_grads(model, base, loss_tol, grad_tol, what):
+        """Loss and gradients, kernel route vs the plain route on the
+        kernel's routing; the kernel route twice, bit for bit."""
+        per = {"flash_attention": 2 * base.n_layers, "flash_attention_bwd": base.n_layers}
+        lk, gk, logk = counted(lambda: grads(model, base, None), per)
+        lp, gp, _ = counted(lambda: grads(model, base, False, logk), {})
+        names = [n for n, _ in model.named_parameters()]
+        errs = {n: rel_norm(torch, a, b) for n, a, b in zip(names, gk, gp)}
+        worst = max(errs, key=errs.get)
+        if not (math.isfinite(float(lk)) and abs(float(lk) - float(lp)) <= loss_tol
+                * max(1.0, abs(float(lp))) and errs[worst] <= grad_tol):
+            fail(f"moe train {what}: kernel route loss {float(lk)} vs plain {float(lp)} on "
+                 f"the kernel's routing, worst gradient {worst} at {errs[worst]:.3g}")
+        del gp
+        lk2, gk2, _ = counted(lambda: grads(model, base, None), per)
+        if not (torch.equal(lk, lk2) and all(torch.equal(a, b) for a, b in zip(gk, gk2))):
+            fail(f"moe train {what}: two loss-and-gradient passes differ")
+        aux_term = base.moe.aux_coef * logk.aux() / base.n_layers
+        say(f"[train] qwen2-moe {what} B=1 S={S_train} (full width, remat): loss "
+            f"{float(lk):.6f} (the aux term {aux_term:.6f}, {aux_term / float(lk):.4%} of "
+            f"it) vs the plain route on the kernel's routing {float(lp):.6f}; ||g_kernel - "
+            f"g_plain|| / ||g_plain|| at most {errs[worst]:.3g} ({worst}) within {grad_tol}, "
+            f"median {float(np.median(list(errs.values()))):.3g}; two passes bit-identical; "
+            f"{per} launches a pass, on {smi}")
+        return float(lk), aux_term
+
+    tt = toks_of(1, S_train + 1, off=4 * S)[0]
+    batch = {"tokens": tt[None, :S_train], "targets": tt[None, 1:],
+             "mask": torch.ones((1, S_train), device=dev)}
+    cfg_t32 = dataclasses.replace(base, n_layers=2, dtype=torch.float32,
+                                  param_dtype=torch.float32)
+    model = TransformerLM(cfg_t32, device=dev, seed=seed)
+    hold_grads(model, cfg_t32, LM_TRAIN_FP32_TOL, LM_TRAIN_FP32_TOL, "fp32 (2 layers, no TF32)")
+    del model
+    torch.cuda.empty_cache()
+    cfg_t = dataclasses.replace(base, n_layers=MOE_TRAIN_LAYERS)
+    Lt = cfg_t.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg_t, device=dev, seed=seed)
+    per_step = {"flash_attention": 2 * Lt, "flash_attention_bwd": Lt}   # remat: twice forward
+    loss0, aux_term = hold_grads(model, cfg_t, LM_TRAIN_LOSS_TOL, LM_TRAIN_GRAD_TOL,
+                                 f"bf16 ({Lt} of 24 layers)")
+    torch.cuda.empty_cache()
+    opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=MOE_TRAIN_STEPS + 2)
+    start = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    after = []
+    state = None
+    for _ in range(2):      # one step twice from the same start: the same bytes
+        state = None        # the fp32 moments are 24 GB: free the last ones first
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        state = init_train_state(dict(model.named_parameters()))
+        step = make_lm_train_step(model, opt)
+        _, met = step(state, batch)
+        after.append((float(met["loss"]), {n: p.detach().to("cpu", copy=True)
+                                           for n, p in model.named_parameters()}))
+    if after[0][0] != after[1][0] or not all(torch.equal(after[0][1][n], after[1][1][n])
+                                             for n in start):
+        fail("moe train: one AdamW step from the same start gives other parameters twice")
+    del start, after
+    losses, walls = [], []
+
+    def train_steps():
+        nonlocal state
+        for _ in range(MOE_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            walls.append(time.perf_counter() - t0)
+
+    counted(train_steps, {k: MOE_TRAIN_STEPS * c for k, c in per_step.items()},
+            counts["moe_train"])
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"moe train: losses {losses} are not finite and falling")
+    step_ms = float(np.median(walls[1:])) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    events = device_times(prof)
+    busy = sum(d for d, _, _ in events) / 1e3
+    fwd = sum(d for d, key, _ in events if TRACE_TAGS["flash_attention"] in key
+              and "fa_bwd_" not in key) / 1e3
+    bwd = sum(d for d, key, _ in events if TRACE_TAGS["flash_attention_bwd"] in key) / 1e3
+    peak_t = torch.cuda.max_memory_allocated()
+    say(f"[train] qwen2-moe bf16 train step ({Lt} of 24 layers, AdamW, remat) B=1 S={S_train}: "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)} over {MOE_TRAIN_STEPS} steps on one "
+        f"batch, one step twice from one start bit-identical; {step_ms:.1f} ms/step (median "
+        f"of steps 2-{MOE_TRAIN_STEPS}), {S_train / step_ms * 1e3:.0f} tokens/s; {per_step} "
+        f"launches a step; peak {gib(peak_t)}; traced step: busy {busy:.1f} ms (share "
+        f"{f'{busy / step_ms:.4f}' if busy else 'not measured'}), flash_attention forward "
+        f"{fwd:.1f} ms, backward {bwd:.1f} ms, "
+        f"{sum(c for _, _, c in events)} device launches, on {smi}")
+    for d, key, count in events[:8]:
+        say(f"[trace]   {d / 1e3:9.3f} ms  {count:5d} x  {key[:90]}")
+    del model, state, step, prof
+    torch.cuda.empty_cache()
+    say(f"[moe] summary: {json.dumps({'prefill_ms': t_pre, 'prefill_tokens_per_s': S / t_pre * 1e3, 'decode_ms': t_dec, 'decode_tokens_per_s': B / t_dec * 1e3, 'prefill_parity': pre_rec, 'decode_parity': dec_recs, 'qwen3_prefill_parity': q3_pre, 'qwen3_decode_parity': q3_dec, 'prefill_trace': pre_trace, 'decode_trace': dec_trace, 'peak_gib': peak / 2**30, 'qwen3_prefill_ms': t_pre3, 'qwen3_decode_ms': t_dec3, 'train_step_ms': step_ms, 'train_tokens_per_s': S_train / step_ms * 1e3, 'train_aux_share': aux_term / loss0, 'train_peak_gib': peak_t / 2**30})}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase 13: MACE
+# --------------------------------------------------------------------------
+MACE_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg")
+MACE_CPU_SHAPES = ("molecule", "full_graph_sm")    # also stepped on the host's CPU
+MACE_TOL = 1e-4             # loss, and each gradient and parameter norm-relative
+MACE_STEPS = 4
+# minibatch_lg's source graph: GNN_SHAPES' 114,615,892 edges took 40.2 s to
+# build on the card's host (``random_graph`` and ``build_csr``), past the 40 s
+# allowed, so it is cut to half; the padded shape (172,032 nodes, 169,984
+# edges) stays, and the sample from 1,024 seeds at fanout (15, 10) fills it
+# as sparsely either way (the Zipf in-degrees leave most seeds a few edges).
+MACE_LG_EDGES = 57_307_946
+
+
+def mace_batch(torch, shape, seed, dev):
+    """A padded batch of GNN_SHAPES' ``shape`` from the port's
+    ``data/graphs.py``, as tensors on ``dev``, and a note on its source."""
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.data.graphs import (batch_molecules, build_csr, neighbor_sample,
+                                         pad_subgraph, random_graph, synth_positions)
+
+    s = GNN_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    N, E = s["pad_nodes"], s["pad_edges"]
+    if shape == "molecule":
+        pos, sp, nm, snd, rcv, em, gi = batch_molecules(rng, s["batch"], s["n_nodes"],
+                                                        s["n_edges"], 16)
+        arrays = {"positions": pos, "node_feat": sp, "node_mask": nm, "senders": snd,
+                  "receivers": rcv, "edge_mask": em, "graph_ids": gi,
+                  "targets": rng.normal(size=s["n_graphs"]).astype(np.float32)}
+        note = (f"{s['batch']} molecules of {s['n_nodes']} atoms, {int(em.sum())} of {E} "
+                f"edges real")
+        return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}, note
+    t0 = time.perf_counter()
+    n_edges = s["n_edges"] if shape != "minibatch_lg" or MACE_LG_EDGES is None else MACE_LG_EDGES
+    src, dst = random_graph(s["n_nodes"], n_edges, seed=seed)
+    if shape == "full_graph_sm":
+        nodes, snd, rcv = np.arange(s["n_nodes"], dtype=np.int32), src, dst
+        t_src, t_sample = time.perf_counter() - t0, 0.0
+        label_rows = 140                                # Cora's labelled training nodes
+    else:
+        indptr, indices = build_csr(src, dst, s["n_nodes"])
+        t_src = time.perf_counter() - t0
+        del src, dst
+        t0 = time.perf_counter()
+        seeds = rng.choice(s["n_nodes"], s["batch_nodes"], replace=False)
+        nodes, snd, rcv = neighbor_sample(indptr, indices, seeds, s["fanout"], rng)
+        t_sample = time.perf_counter() - t0
+        del indptr, indices
+        label_rows = s["batch_nodes"]                   # the seeds
+    nodes_p, snd, rcv, em, nm = pad_subgraph(nodes, snd, rcv, N, E)
+    words = rng.random((N, s["d_feat"]), dtype=np.float32) < 18 / s["d_feat"]  # ~18 a node
+    arrays = {"positions": synth_positions(nodes_p), "node_feat": words.astype(np.float32)
+              * nm[:, None], "node_mask": nm, "senders": snd, "receivers": rcv,
+              "edge_mask": em, "graph_ids": np.zeros(N, np.int32),
+              "labels": rng.integers(0, s["n_classes"], N).astype(np.int32),
+              "label_mask": (np.arange(N) < label_rows).astype(np.float32)}
+    note = (f"a {s['n_nodes']:,}-node / {n_edges:,}-edge source graph (host build {t_src:.1f} s"
+            + (f", sampled from {s['batch_nodes']} seeds at fanout {s['fanout']} in "
+               f"{t_sample:.1f} s" if t_sample else "")
+            + f"): {len(nodes):,} nodes, {int(em.sum()):,} edges, padded {N:,} / {E:,}")
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}, note
+
+
+def mace_phase(torch, dev, seed, smi, reset_counts, read_counts) -> dict:
+    """MACE's base config (2 layers, C = 128, l_max 2, correlation 3) train
+    steps at GNN_SHAPES' molecule, full_graph_sm and minibatch_lg in fp32
+    (no TF32): ms per step, peak memory, busy share, one step twice from one
+    start bit-identical, the loss and gradients (and the parameters after the
+    step) against the same step on the CPU at the two small shapes; the
+    energy's rotation invariance at molecule. No kernel of the port runs on
+    this path (its products are library calls): every count stays 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.models.mace import GraphBatch, MACEModel
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_gnn_train_step
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch("mace")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=MACE_STEPS + 2)
+    out = {}
+    for shape in MACE_SHAPES:
+        s = GNN_SHAPES[shape]
+        cfg = arch.cfg_for(shape)
+        t0 = time.perf_counter()
+        batch, note = mace_batch(torch, shape, seed, dev)
+        t_data = time.perf_counter() - t0
+        host = MACEModel(cfg, device="cpu", seed=seed)     # one draw for the card and the CPU
+        start = {n: p.detach().clone() for n, p in host.named_parameters()}
+        model = MACEModel(cfg, device="cpu", seed=seed).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+
+        def one_step(m, b):
+            st = init_train_state(dict(m.named_parameters()))
+            stp = make_gnn_train_step(m, opt, task=s["task"], n_graphs=s["n_graphs"])
+            st, met = stp(st, b)
+            return st, stp, met
+
+        def grads_of(m, b):
+            gb = GraphBatch(**{k: b[k] for k in ("positions", "node_feat", "node_mask",
+                                                 "senders", "receivers", "edge_mask",
+                                                 "graph_ids")}, n_graphs=s["n_graphs"])
+            loss = (m.energy_force_loss(gb, b["targets"]) if s["task"] == "energy"
+                    else m.node_class_loss(gb, b["labels"], b["label_mask"]))
+            return loss.detach(), torch.autograd.grad(loss, list(m.parameters()))
+
+        reset_counts()
+        lk, gk = grads_of(model, batch)
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+            state, step, met = one_step(model, batch)
+            runs.append((float(met["loss"]), {n: p.detach().clone()
+                                              for n, p in model.named_parameters()}))
+        if runs[0][0] != runs[1][0] or not all(torch.equal(runs[0][1][n], runs[1][1][n])
+                                               for n in start):
+            fail(f"mace {shape}: one step twice from one start gives other bytes")
+        walls = []
+        for _ in range(MACE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            float(met["loss"])
+            walls.append(time.perf_counter() - t0)
+        if any(c for c in read_counts().values()):
+            fail(f"mace {shape}: launched {read_counts()}; its path has no kernel of the port")
+        step_ms = float(np.median(walls)) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+        events = device_times(prof)
+        busy = sum(d for d, _, _ in events) / 1e3
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"ms": step_ms, "busy_ms": busy, "share": busy / step_ms if busy else None,
+               "peak_gib": peak / 2**30, "loss": runs[0][0], "data_s": t_data,
+               "launches": sum(c for _, _, c in events)}
+        cpu_note = ""
+        if shape in MACE_CPU_SHAPES:
+            t0 = time.perf_counter()
+            hb = {k: v.cpu() for k, v in batch.items()}
+            lc, gc = grads_of(host, hb)
+            _, _, met_c = one_step(host, hb)
+            t_cpu = time.perf_counter() - t0
+            names = [n for n, _ in host.named_parameters()]
+            g_err = max(rel_norm(torch, a.cpu(), b) for a, b in zip(gk, gc))
+            p_err = max(rel_norm(torch, runs[0][1][n].cpu(), p.detach())
+                        for n, p in host.named_parameters())
+            l_err = abs(float(lk) - float(lc)) / max(abs(float(lc)), 1e-30)
+            if not (l_err <= MACE_TOL and g_err <= MACE_TOL and p_err <= MACE_TOL
+                    and abs(runs[0][0] - float(met_c["loss"])) <= MACE_TOL * abs(float(lc))):
+                fail(f"mace {shape}: card vs CPU: loss {float(lk)} vs {float(lc)}, gradients "
+                     f"{g_err:.3g}, parameters after a step {p_err:.3g} (tolerance {MACE_TOL})")
+            rec.update(cpu_loss_rel=l_err, cpu_grad_rel=g_err, cpu_param_rel=p_err, cpu_s=t_cpu)
+            cpu_note = (f"; against the same step on the CPU ({t_cpu:.1f} s): loss {l_err:.3g}, "
+                        f"gradients {g_err:.3g}, parameters after it {p_err:.3g}, norm-relative, "
+                        f"within {MACE_TOL} ({len(names)} tensors)")
+        if shape == "molecule":        # E(3): the energy does not turn with the molecule
+            q, _ = np.linalg.qr(np.random.default_rng(seed + 1).normal(size=(3, 3)))
+            R = torch.tensor(q * np.sign(np.linalg.det(q)), dtype=torch.float32, device=dev)
+            fields = ("positions", "node_feat", "node_mask", "senders", "receivers",
+                      "edge_mask", "graph_ids")
+            gb = GraphBatch(**{k: batch[k] for k in fields}, n_graphs=s["n_graphs"])
+            with torch.no_grad():
+                e0 = model(gb)
+                e1 = model(dataclasses.replace(gb, positions=batch["positions"] @ R.T))
+            if not torch.allclose(e1, e0, rtol=2e-4, atol=1e-6):
+                fail(f"mace molecule: a rotation moves the energy by "
+                     f"{float((e1 - e0).abs().max())}")
+            rec["rotation_max_diff"] = float((e1 - e0).abs().max())
+            cpu_note += (f"; energies of {s['n_graphs']} molecules unchanged by a rotation "
+                         f"within rtol 2e-4 (max |diff| {rec['rotation_max_diff']:.3g})")
+        say(f"[mace] {shape} ({s['task']}; {note}; data {t_data:.1f} s): {step_ms:.2f} ms/step "
+            f"(median of {MACE_STEPS}), traced step busy {busy:.2f} ms (share "
+            f"{f'{busy / step_ms:.4f}' if busy else 'not measured'}) in {rec['launches']} "
+            f"device launches, peak "
+            f"{peak / 2**30:.2f} GiB; loss {runs[0][0]:.6f}; one step twice from one start "
+            f"bit-identical{cpu_note}; on {smi}")
+        for d, key, count in events[:5]:
+            say(f"[trace]   {d / 1e3:9.3f} ms  {count:5d} x  {key[:90]}")
+        out[shape] = rec
+        del model, host, batch, state, step, runs, gk, start
+        torch.cuda.empty_cache()
+    o = GNN_SHAPES["ogb_products"]
+    say(f"[mace] ogb_products ({o['n_nodes']:,} nodes, {o['n_edges']:,} edges, padded "
+        f"{o['pad_nodes']:,} / {o['pad_edges']:,}) waits for ROADMAP Queue A item 6: its [E, C, "
+        f"9] fp32 messages alone are {o['pad_edges'] * 128 * 9 * 4 / 1e9:.0f} GB, more than one "
+        f"card's 80 GB, so it needs edges sharded over cards; it is not cut")
+    say(f"[mace] summary: {json.dumps(out)}; phase took {time.perf_counter() - t_phase:.1f} s "
+        f"on {smi}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2318,6 +3097,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", action="store_true",
                     help="only the training phase after the build; prints no result line")
+    ap.add_argument("--moe", action="store_true",
+                    help="only the MoE phase (12) after the build; prints no result line")
+    ap.add_argument("--gnn", action="store_true",
+                    help="only the MACE phase (13) after the build; prints no result line")
     ap.add_argument("--probe", action="store_true",
                     help="only the live index's probes after the build: the drill on "
                          "the real clock, and MainCorpusView's two paths at the log's "
@@ -2462,6 +3245,14 @@ def main() -> int:
         train_phase(torch, dev, args.seed, smi, hold, reset_counts, read_counts)
         lap("train")
         say(json.dumps({name: cases for name, cases in results.items()}))
+        return 0
+    if args.moe or args.gnn:
+        if args.moe:
+            say(json.dumps(moe_phase(torch, dev, args.seed, smi, reset_counts, read_counts)))
+            lap(12)
+        if args.gnn:
+            mace_phase(torch, dev, args.seed, smi, reset_counts, read_counts)
+            lap(13)
         return 0
 
     # ---- 3. recsys serving --------------------------------------------------
@@ -2909,7 +3700,15 @@ def main() -> int:
     counted["train"] = train_phase(torch, dev, args.seed, smi, hold, reset_counts, read_counts)
     lap(11)
 
-    # ---- 12. kernels line ---------------------------------------------------
+    # ---- 12. the MoE archs ----------------------------------------------------
+    counted.update(moe_phase(torch, dev, args.seed, smi, reset_counts, read_counts))
+    lap(12)
+
+    # ---- 13. MACE -------------------------------------------------------------
+    mace_phase(torch, dev, args.seed, smi, reset_counts, read_counts)
+    lap(13)
+
+    # ---- 14. kernels line ---------------------------------------------------
     launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
     say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []

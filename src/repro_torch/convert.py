@@ -25,7 +25,13 @@ init the JAX package draws inside ``interests``.
 ``lm_params_from_arrays`` does the same for a transformer LM: ``"embed"``,
 ``"final_norm"``, ``"lm_head"`` (untied embeddings only) and the stacked
 per-layer weights ``"layers.wq"`` etc. of shape ``(n_steps,
-layers_per_step, ...)`` become a ``TransformerLM``.
+layers_per_step, ...)`` become a ``TransformerLM``; a MoE config takes
+``"layers.router"``, ``"layers.we_gate"``/``we_up``/``we_down`` (all
+``e_padded`` experts) and, with a shared expert, ``"layers.ws_gate"``,
+``ws_up``, ``ws_down`` and ``ws_gate_proj`` instead of the dense FFN.
+
+``mace_params_from_arrays`` does the same for MACE: ``"embed"``,
+``"layers.<i>.<name>"`` (``rad1``, ``w_b2``, ...), ``"read1"``, ``"read2"``.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from .core.dictionary import TermDictionary
 from .core.inverted_index import InvertedIndex
 from .core.rmq import RangeMin
 from .core.striped import StripedQACIndex
+from .models.mace import MACEConfig, MACEModel
 from .models.recsys import RecsysConfig
 from .models.transformer import TransformerConfig, TransformerLM
 
@@ -137,3 +144,11 @@ def lm_params_from_arrays(arrays: dict[str, np.ndarray], cfg: TransformerConfig,
     holding the JAX parameters ``arrays``, keyed by tree path joined with
     ``.``; every key must be used exactly once, each of its shape."""
     return _load_arrays(TransformerLM(cfg, device=device), arrays, "lm")
+
+
+def mace_params_from_arrays(arrays: dict[str, np.ndarray], cfg: MACEConfig,
+                            device=None) -> MACEModel:
+    """The ``MACEModel`` of ``cfg`` on ``device`` (default: the card) holding
+    the JAX parameters ``arrays``, keyed by tree path joined with ``.``;
+    every key must be used exactly once, each of its shape."""
+    return _load_arrays(MACEModel(cfg, device=device), arrays, "mace")

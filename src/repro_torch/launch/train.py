@@ -1,6 +1,6 @@
 """Training launcher: data -> train step -> checkpoint manager ->
-fault-tolerant driver, for any LM or recsys arch at its smoke config (the
-JAX package's ``launch/train.py``).
+fault-tolerant driver, for any LM (MoE included), GNN or recsys arch at its
+smoke config (the JAX package's ``launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --steps 50 [--ckpt-dir DIR] [--ckpt-every 10] [--drill] [--device cpu]
@@ -11,7 +11,8 @@ fault at step ``steps // 2``; ``TrainDriver`` restores the latest checkpoint and
 carries on. The checkpoint directory (default: ``repro_torch_ckpt`` under
 the system's temporary directory) is not cleared first: a run restores from
 the latest step it finds there, so give each run a directory of its own.
-``--arch mace`` raises: the GNN is not ported (ROADMAP Queue A item 5).
+``--arch mace`` trains on random molecular batches (8 molecules of 8 atoms,
+16 edges each) for the energy task, as the JAX launcher does.
 """
 from __future__ import annotations
 
@@ -28,9 +29,8 @@ from ..ckpt import CheckpointManager
 from ..configs import get_arch, list_archs
 from ..optim.adamw import AdamWConfig
 from ..runtime import FaultInjector, StepMonitor, TrainDriver
-from ..train.steps import init_train_state, make_lm_train_step, make_recsys_train_step
-
-GNN_ARCHS = ("mace",)
+from ..train.steps import (init_train_state, make_gnn_train_step, make_lm_train_step,
+                           make_recsys_train_step)
 
 
 def make_lm_setup(arch, steps, device):
@@ -46,6 +46,23 @@ def make_lm_setup(arch, steps, device):
         return {"tokens": torch.from_numpy(t).to(device),
                 "targets": torch.from_numpy(y).to(device),
                 "mask": torch.from_numpy(m).to(device)}
+
+    return model, step_fn, next_batch
+
+
+def make_gnn_setup(arch, steps, device):
+    from ..data.graphs import batch_molecules
+    model = arch.smoke_model(device=device)
+    rng = np.random.default_rng(0)
+    step_fn = make_gnn_train_step(model, AdamWConfig(lr=1e-3, total_steps=steps),
+                                  task="energy", n_graphs=8)
+
+    def next_batch():
+        pos, sp, nm, s, r, em, gi = batch_molecules(rng, 8, 8, 16, 8)
+        arrays = {"positions": pos, "node_feat": sp, "node_mask": nm, "senders": s,
+                  "receivers": r, "edge_mask": em, "graph_ids": gi,
+                  "targets": rng.normal(size=8).astype(np.float32)}
+        return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
     return model, step_fn, next_batch
 
@@ -68,7 +85,7 @@ def make_recsys_setup(arch, steps, device):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="smollm-360m", choices=[*list_archs(), *GNN_ARCHS])
+    ap.add_argument("--arch", default="smollm-360m", choices=list_archs())
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_ckpt"))
@@ -82,13 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.arch in GNN_ARCHS:
-        raise NotImplementedError(f"--arch {args.arch}: the GNN is not ported yet "
-                                  "(ROADMAP Queue A item 5)")
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     if arch.family == "lm":
         model, step_fn, next_batch = make_lm_setup(arch, args.steps, device)
+    elif arch.family == "gnn":
+        model, step_fn, next_batch = make_gnn_setup(arch, args.steps, device)
     elif arch.family == "recsys":
         model, step_fn, next_batch = make_recsys_setup(arch, args.steps, device)
     else:

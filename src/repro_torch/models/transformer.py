@@ -1,9 +1,8 @@
-"""Decoder-only transformer: the dense serving path of the JAX package's
-``models/transformer.py``.
+"""Decoder-only transformer: the JAX package's ``models/transformer.py``.
 
-One config expresses llama-style GQA (smollm), qk-norm GQA (qwen3) and
-local/global alternating layers with softcaps and sandwich norms (gemma2).
-A MoE config raises: the expert path runs no kernel and is a later slice.
+One config expresses llama-style GQA (smollm), qk-norm GQA (qwen3),
+local/global alternating layers with softcaps and sandwich norms (gemma2)
+and shared + routed mixture-of-experts blocks (qwen2-moe, qwen3-moe).
 
 ``TransformerLM`` is an ``nn.Module`` built on ``device`` (default: the
 card) from a ``torch.Generator`` seeded with ``seed``; the values differ
@@ -20,13 +19,23 @@ the CUDA kernel on the card, the plain version on the CPU): ``forward`` with
 the causal mask and each layer's window, ``decode_step`` with one query row
 against the cache and ``kv_len``. Serving (``forward``, ``init_cache`` and
 ``decode_step``) runs under ``torch.inference_mode()``. Training goes through
-``loss_fn`` (JAX's ``loss_fn``, without the MoE aux term: a MoE config
-raises), which runs the same trunk with grad enabled: on the card each
+``loss_fn`` (JAX's ``loss_fn``, with the MoE aux term ``aux_coef * aux /
+n_layers``), which runs the same trunk with grad enabled: on the card each
 attention is the forward kernel inside ``FlashAttention``, whose backward is
 the hand-written ``flash_attention_bwd``. With ``cfg.remat`` each scan step
 (its ``layers_per_step`` layers) runs under
 ``torch.utils.checkpoint(..., use_reentrant=False)``, as JAX's
 ``jax.checkpoint(step)``: its activations are recomputed in the backward.
+
+The MoE block (JAX's ``_route``, ``_experts_apply`` and ``_moe_mlp``
+without a mesh) runs no TPU kernel: the router, the experts' FFNs and the
+shared expert are library products. JAX scans the experts one at a time;
+:func:`experts_apply` does the same work batched (an [E, T] one-hot and its
+running count give every expert's kept tokens, one [E, C, d] gather, three
+``bmm``), with JAX's drops and JAX's order of adds. The sharding switches
+(``moe_shard_map``, ``moe_fsdp``, ``moe_psum_bf16``) change nothing without
+a mesh, as in JAX; in a ``torch.distributed`` group of more than one rank a
+MoE block raises (expert parallelism: ROADMAP Queue A item 6).
 
 Hazards written out:
   * The token gather clamps as JAX's ``embed[tokens]`` does (a negative id
@@ -43,6 +52,15 @@ Hazards written out:
     layer's ring of ``Sc = min(window, max_len)`` rows, written at
     ``pos % Sc`` and read up to ``min(pos + 1, Sc)``, carries the window.
     RoPE positions stay absolute.
+  * Routing ties: ``lax.top_k`` puts the lower expert first; ``torch.topk``
+    promises no order, so ``_route`` takes a stable descending sort.
+  * Capacity is ``max(8, int(T * top_k / n_experts * capacity_factor))`` in
+    Python floats with T = B * S of the call: a decode step (T = B) keeps
+    other tokens than the teacher-forced forward does.
+  * JAX adds each expert's output into a carry of the activation dtype in
+    ascending expert id; in bf16 every add rounds, so a token's
+    contributions are summed in that order here too. Padded experts
+    (``pad_experts_to``) keep their weights and receive no token.
 """
 from __future__ import annotations
 
@@ -64,6 +82,14 @@ class MoESettings:
     top_k: int
     d_expert: int
     shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    norm_topk: bool = True
+    aux_coef: float = 1e-2
+    pad_experts_to: int = 0   # > n_experts: padded weight arrays (never routed to)
+
+    @property
+    def e_padded(self) -> int:
+        return max(self.pad_experts_to, self.n_experts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +118,8 @@ class TransformerConfig:
     param_dtype: Any = torch.bfloat16
     use_flash: Optional[bool] = None  # flash_attention kernel; None: on CUDA
     # The JAX config's training and distribution switches: remat recomputes
-    # each scan step in loss_fn's backward; the MoE sharding switches raise
-    # when set, as a MoE config does.
+    # each scan step in loss_fn's backward; the MoE sharding switches change
+    # nothing on one device and raise in a group of more than one rank.
     remat: bool = True
     moe_shard_map: bool = False
     moe_fsdp: bool = False
@@ -161,14 +187,57 @@ def take_targets(logp: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, got, float("nan"))
 
 
+def moe_capacity(T: int, m: MoESettings) -> int:
+    """Tokens an expert keeps of a call's T = B * S, in JAX's Python floats."""
+    return max(8, int(T * m.top_k / m.n_experts * m.capacity_factor))
+
+
+def experts_apply(x2d, idx, gates, we_gate, we_up, we_down, capacity: int, act: str):
+    """JAX's ``_experts_apply`` over experts ``0..E-1`` (E = ``we_gate.shape[0]``),
+    batched: x2d [T, d]; idx int[T, k] (distinct in a row), gates fp32 [T, k];
+    we_* [E, ...] -> [T, d] in x2d's dtype.
+
+    Expert e keeps its first ``capacity`` tokens in token order; a kept
+    token's output is the expert's FFN times its gate cast to x2d's dtype,
+    and a token sums its contributions in ascending expert id (JAX's scan
+    adds them into a carry of that dtype one expert at a time).
+
+    A slot no token fills reads the row ``slot % T`` of x2d (JAX reads a
+    row of zeros): its FFN output is never gathered, so it only gets a zero
+    gradient, and spreading those rows keeps the gather's backward (a sorted
+    accumulation) from summing thousands of zeros into one row."""
+    T, d = x2d.shape
+    E, C = we_gate.shape[0], capacity
+    dev = x2d.device
+    # [E, T] one-hot, its running count along T (a scan along the inner dim:
+    # along the outer dim of a [T, E] one the card's scan takes 7 ms at T = 32k)
+    tok = torch.zeros((E, T), dtype=torch.int32, device=dev).scatter_(0, idx.long().t(), 1)
+    pos = (tok.cumsum(1) - 1).gather(0, idx.long().t()).t()  # [T, k] rank among e's tokens
+    kept = pos < C
+    slot = torch.where(kept, idx.long() * C + pos, E * C)     # E * C: a dropped pair
+    t_ids = torch.arange(T, device=dev)[:, None].expand_as(slot)
+    slot_ids = torch.arange(E * C + 1, device=dev) % T
+    slot_ids.scatter_(0, slot.reshape(-1), t_ids.reshape(-1))
+    xe = x2d[slot_ids[:E * C]].view(E, C, d)
+    he = _mm(gated_act(_mm(xe, we_gate), _mm(xe, we_up), act), we_down)
+    he = torch.cat([he.reshape(E * C, d).to(x2d.dtype), x2d.new_zeros(1, d)])
+    order = idx.argsort(dim=1)                                # ascending expert id
+    slot, g = slot.gather(1, order), gates.gather(1, order).to(x2d.dtype)
+    contrib = he[slot] * g[:, :, None]                        # [T, k, d], 0 where dropped
+    out = contrib[:, 0]
+    for j in range(1, idx.shape[1]):
+        out = out + contrib[:, j]
+    return out
+
+
+def _group_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 class TransformerLM(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.moe:
-            raise NotImplementedError("MoE: a later slice")
-        switches = [f for f in ("moe_shard_map", "moe_fsdp", "moe_psum_bf16") if getattr(cfg, f)]
-        if switches:
-            raise NotImplementedError(f"{switches}: MoE sharding is a later slice")
         self.cfg = cfg
         self.device = resolve_device(device)
         g = torch.Generator(device=self.device).manual_seed(seed)
@@ -176,8 +245,8 @@ class TransformerLM(nn.Module):
         H, G, hd, d = c.n_heads, c.n_kv_heads, c.head_dim, c.d_model
         n = (c.n_steps, c.layers_per_step)
 
-        def dense(d_in, d_out):   # every layer's weight in one draw
-            return nn.Parameter(dense_init(n + (d_in, d_out), g, in_axis=2, dtype=pd))
+        def dense(*shape, in_axis=0, dtype=pd):   # every layer's weight in one draw
+            return nn.Parameter(dense_init(n + shape, g, in_axis=2 + in_axis, dtype=dtype))
 
         def zeros(width):
             return nn.Parameter(torch.zeros(n + (width,), dtype=pd, device=self.device))
@@ -188,8 +257,18 @@ class TransformerLM(nn.Module):
             layers |= {"post_attn": zeros(d), "post_mlp": zeros(d)}
         if c.qk_norm:
             layers |= {"q_norm": zeros(hd), "k_norm": zeros(hd)}
-        layers |= {"w_gate": dense(d, c.d_ff), "w_up": dense(d, c.d_ff),
-                   "w_down": dense(c.d_ff, d)}
+        if c.moe:
+            m = c.moe
+            layers |= {"router": dense(d, m.n_experts, dtype=torch.float32),
+                       "we_gate": dense(m.e_padded, d, m.d_expert, in_axis=1),
+                       "we_up": dense(m.e_padded, d, m.d_expert, in_axis=1),
+                       "we_down": dense(m.e_padded, m.d_expert, d, in_axis=1)}
+            if m.shared_d_ff:
+                layers |= {"ws_gate": dense(d, m.shared_d_ff), "ws_up": dense(d, m.shared_d_ff),
+                           "ws_down": dense(m.shared_d_ff, d), "ws_gate_proj": dense(d, 1)}
+        else:
+            layers |= {"w_gate": dense(d, c.d_ff), "w_up": dense(d, c.d_ff),
+                       "w_down": dense(c.d_ff, d)}
         self.layers = nn.ParameterDict(layers)
         self.embed = nn.Parameter(embed_init((c.vocab, d), g, dtype=pd))
         self.final_norm = nn.Parameter(torch.zeros(d, dtype=pd, device=self.device))
@@ -241,7 +320,49 @@ class TransformerLM(nn.Module):
         out = _mm(gated_act(_mm(h, lp["w_gate"]), _mm(h, lp["w_up"]), c.act), lp["w_down"])
         if c.post_norms:
             out = rms_norm(out, lp["post_mlp"], c.norm_eps)
-        return out
+        return out, 0.0
+
+    # -- MoE -------------------------------------------------------------------
+    def _route(self, lp, h2d):
+        """Router: h2d [T, d] -> (idx int64[T, k], gates fp32[T, k], aux fp32 [])."""
+        m = self.cfg.moe
+        probs = torch.softmax(_mm(h2d.float(), lp["router"]), dim=-1)      # [T, E]
+        idx = probs.sort(dim=-1, descending=True, stable=True).indices[:, :m.top_k]
+        gates = probs.gather(1, idx)
+        if m.norm_topk:
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        # Switch-style load balance: each expert's share of the k * T choices
+        T = h2d.shape[0]
+        f = torch.zeros((T, m.n_experts), dtype=torch.float32, device=h2d.device)
+        f = f.scatter_(1, idx, 1.0).sum(0) / (T * m.top_k)
+        aux = m.n_experts * (f * probs.mean(0)).sum()
+        return idx, gates, aux
+
+    def _moe_mlp(self, lp, x):
+        c, m = self.cfg, self.cfg.moe
+        if (c.moe_shard_map or c.moe_fsdp or c.moe_psum_bf16) and _group_size() > 1:
+            raise NotImplementedError(
+                "moe_shard_map/moe_fsdp/moe_psum_bf16 across ranks: expert parallelism "
+                "waits for the port's distribution work (ROADMAP Queue A item 6)")
+        B, S, d = x.shape
+        h = rms_norm(x, lp["pre_mlp"], c.norm_eps)
+        h2d = h.reshape(B * S, d)
+        idx, gates, aux = self._route(lp, h2d)
+        E = m.n_experts                            # padded experts receive no token
+        out = experts_apply(h2d, idx, gates, lp["we_gate"][:E], lp["we_up"][:E],
+                            lp["we_down"][:E], moe_capacity(B * S, m), c.act).reshape(B, S, d)
+        if m.shared_d_ff:
+            gate = torch.sigmoid(_mm(h, lp["ws_gate_proj"]))
+            shared = _mm(gated_act(_mm(h, lp["ws_gate"]), _mm(h, lp["ws_up"]), c.act),
+                         lp["ws_down"])
+            out = out + gate * shared
+        if c.post_norms:
+            out = rms_norm(out, lp["post_mlp"], c.norm_eps)
+        return out, aux
+
+    def _mlp(self, lp, x):
+        """-> (the block's output, its aux loss: 0.0 for a dense block)."""
+        return self._moe_mlp(lp, x) if self.cfg.moe else self._dense_mlp(lp, x)
 
     def _embed(self, tokens):
         c = self.cfg
@@ -251,36 +372,43 @@ class TransformerLM(nn.Module):
         return x
 
     def _scan_step(self, x, positions, step: int, kvs=None):
-        """The ``layers_per_step`` layers of scan step ``step``; appends each
-        layer's (k, v) to ``kvs`` when given."""
+        """The ``layers_per_step`` layers of scan step ``step`` -> (x, the
+        sum of their aux losses); appends each layer's (k, v) to ``kvs`` when
+        given."""
         c = self.cfg
+        aux = 0.0
         for i in range(c.layers_per_step):
             lp = self._layer(step, i)
             attn, (k, v) = self._attention(lp, x, positions, c.window_of(i))
             x2 = x + attn
-            x = x2 + self._dense_mlp(lp, x2)
+            mlp, a = self._mlp(lp, x2)
+            x = x2 + mlp
+            aux = aux + a
             if kvs is not None:
                 kvs[i][0].append(k)
                 kvs[i][1].append(v)
-        return x
+        return x, aux
 
     def _trunk(self, tokens, *, return_cache: bool = False, remat: bool = False):
         """tokens int32[B, S] -> (the last layer's output [B, S, d] before the
-        final norm, and per layer of a step (k, v) [n_steps, B, G, S, hd]
-        when ``return_cache``). ``remat`` checkpoints each scan step."""
+        final norm, the layers' aux losses summed (fp32 []), and per layer of
+        a step (k, v) [n_steps, B, G, S, hd] when ``return_cache``).
+        ``remat`` checkpoints each scan step."""
         c = self.cfg
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         kvs = [([], []) for _ in range(c.layers_per_step)] if return_cache else None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for step in range(c.n_steps):
             if remat:
-                x = checkpoint(self._scan_step, x, positions, step, use_reentrant=False)
+                x, a = checkpoint(self._scan_step, x, positions, step, use_reentrant=False)
             else:
-                x = self._scan_step(x, positions, step, kvs)
+                x, a = self._scan_step(x, positions, step, kvs)
+            aux = aux + a
         cache = (tuple((torch.stack(ks), torch.stack(vs)) for ks, vs in kvs)
                  if return_cache else None)
-        return x, cache
+        return x, aux, cache
 
     def _head(self, x):
         """Final norm, the (tied) head in ``dtype`` and the final softcap:
@@ -296,19 +424,24 @@ class TransformerLM(nn.Module):
     # -- full forward (prefill) ------------------------------------------------
     @torch.inference_mode()
     def forward(self, tokens, *, return_cache: bool = False):
-        """tokens int32[B, S] -> (logits f32[B, S, V], aux 0, cache|None)."""
-        x, cache = self._trunk(tokens, return_cache=return_cache)
-        return self._head(x), torch.zeros((), dtype=torch.float32), cache
+        """tokens int32[B, S] -> (logits f32[B, S, V], the layers' aux loss
+        summed (0 without MoE), cache|None)."""
+        x, aux, cache = self._trunk(tokens, return_cache=return_cache)
+        return self._head(x), aux, cache
 
     # -- training ----------------------------------------------------------------
     def loss_fn(self, tokens, targets, mask):
-        """Masked mean next-token nll: tokens, targets int[B, S], mask float
-        [B, S] -> fp32 []. Runs with grad (when enabled), remat per scan step
-        when ``cfg.remat``."""
-        x, _ = self._trunk(tokens, remat=self.cfg.remat and torch.is_grad_enabled())
+        """Masked mean next-token nll, plus ``aux_coef * aux / n_layers`` with
+        MoE: tokens, targets int[B, S], mask float [B, S] -> fp32 []. Runs
+        with grad (when enabled), remat per scan step when ``cfg.remat``."""
+        c = self.cfg
+        x, aux, _ = self._trunk(tokens, remat=c.remat and torch.is_grad_enabled())
         logp = torch.log_softmax(self._head(x), dim=-1)
         nll = -take_targets(logp, targets)
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        if c.moe:
+            loss = loss + c.moe.aux_coef * aux / c.n_layers
+        return loss
 
     # -- KV-cache serving --------------------------------------------------------
     @torch.inference_mode()
@@ -344,6 +477,6 @@ class TransformerLM(nn.Module):
                     lp, x, positions, 0, cache=(ck, cv), cache_pos=(pos % Sc).long(),
                     kv_len=torch.clamp(pos + 1, max=Sc))
                 x2 = x + attn
-                x = x2 + self._dense_mlp(lp, x2)
+                x = x2 + self._mlp(lp, x2)[0]
         new_cache = {"pos": pos + 1, "k": cache["k"], "v": cache["v"]}
         return self._head(x[:, 0, :]), new_cache

@@ -14,7 +14,7 @@ def prefill_step(model: TransformerLM, tokens):
     The JAX package's ``forward(...)[:, -1]``, with the final norm and the
     head applied to the last position only: full logits at S = 32768 would
     be 33.5 GB in fp32 for one row of gemma2-2b's 256,000-token vocabulary."""
-    x, _ = model._trunk(tokens)
+    x, _, _ = model._trunk(tokens)
     return model._head(x[:, -1, :])
 
 

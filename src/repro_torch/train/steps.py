@@ -15,9 +15,12 @@ dict itself).
     pairwise term goes through ``fm_pairwise``, whose backward is a kernel
     on the card.
 
+  * ``make_gnn_train_step``: MACE's step on a padded graph batch, the
+    energy task (``energy_force_loss`` without force targets) or node
+    classification.
+
 Not ported: ``compress_pod`` (the int8 cross-pod gradient compression
-needs the port's distribution work, ROADMAP Queue A item 6) raises, and so
-does ``make_gnn_train_step`` (the GNN, Queue A item 5).
+needs the port's distribution work, ROADMAP Queue A item 6) raises.
 """
 from __future__ import annotations
 
@@ -108,9 +111,24 @@ def make_lm_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                       compress_pod=compress_pod)
 
 
-def make_gnn_train_step(model, opt_cfg: AdamWConfig, **_):
-    raise NotImplementedError("make_gnn_train_step: the GNN (MACE) is not ported yet "
-                              "(ROADMAP Queue A item 5)")
+def make_gnn_train_step(model, opt_cfg: AdamWConfig, *, task: str = "energy",
+                        n_graphs: int = 1, compress_pod: bool = False):
+    """``batch`` holds the ``GraphBatch`` fields by name, plus ``targets``
+    [n_graphs] (energy) or ``labels`` and ``label_mask`` [N] (node_class)."""
+    from ..models.mace import GraphBatch
+
+    def loss_fn(params, batch):
+        gb = GraphBatch(
+            positions=batch["positions"], node_feat=batch["node_feat"],
+            node_mask=batch["node_mask"], senders=batch["senders"],
+            receivers=batch["receivers"], edge_mask=batch["edge_mask"],
+            graph_ids=batch["graph_ids"], n_graphs=n_graphs,
+        )
+        if task == "energy":
+            return model.energy_force_loss(gb, batch["targets"])
+        return model.node_class_loss(gb, batch["labels"], batch["label_mask"])
+
+    return _make_step(loss_fn, opt_cfg, compress_pod=compress_pod)
 
 
 def make_recsys_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,

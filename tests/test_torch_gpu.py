@@ -1210,3 +1210,81 @@ def test_fm_sparse_train_step_kernel_route_matches_plain_route():
                                                                    ps.params["bias"])):
         a, b = a.detach(), b.detach()
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+def test_moe_prefill_on_card_matches_cpu():
+    """qwen2-moe at smoke width (fp32) on the card against the same weights
+    on the CPU: the forward's logits and aux and ``prefill_step`` within 1e-4,
+    the router's choices equal, one flash_attention launch a layer a call;
+    12 decode steps on both devices."""
+    _card()
+    arch = get_arch("qwen2-moe-a2.7b")
+    cpu = arch.smoke_model(device="cpu", seed=1)
+    card = arch.smoke_model(device="cuda", seed=1)
+    card.load_state_dict(cpu.state_dict())
+    L = card.cfg.n_layers
+    toks = torch.tensor(np.random.default_rng(3).integers(0, arch.smoke_cfg.vocab, (2, 48)),
+                        dtype=torch.int32)
+    before = fa_ops.launches
+    logits, aux, _ = card(toks.cuda())
+    last = prefill_step(card, toks.cuda())
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 2 * L
+    want, want_aux, _ = cpu(toks)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(last.cpu(), prefill_step(cpu, toks), rtol=1e-4, atol=1e-4)
+    lp = card._layer(0, 0)
+    x = torch.randn(96, card.cfg.d_model, generator=torch.Generator().manual_seed(4))
+    assert torch.equal(card._route(lp, x.cuda())[0].cpu(), cpu._route(cpu._layer(0, 0), x)[0])
+    cc, ct = card.init_cache(2, 32), cpu.init_cache(2, 32)
+    for t in range(12):
+        got, cc = card.decode_step(cc, toks[:, t].cuda())
+        want, ct = cpu.decode_step(ct, toks[:, t])
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_mace_train_step_is_bit_identical_on_the_card():
+    """MACE at smoke width, both tasks: a train step run twice from the same
+    start gives the same loss and parameters bit for bit (the segment sums
+    and the gathers' backward sum in sorted order, not by float atomics), and
+    the CPU's within 1e-4."""
+    from repro_torch.data.graphs import (batch_molecules, build_csr, neighbor_sample,
+                                         pad_subgraph, random_graph, synth_positions)
+    from repro_torch.models.mace import MACEModel
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_gnn_train_step
+
+    _card()
+    arch = get_arch("mace")
+    rng = np.random.default_rng(0)
+    pos, sp, nm, s, r, em, gi = batch_molecules(rng, 8, 8, 16, 8)
+    energy = {"positions": pos, "node_feat": sp, "node_mask": nm, "senders": s,
+              "receivers": r, "edge_mask": em, "graph_ids": gi,
+              "targets": rng.normal(size=8).astype(np.float32)}
+    src, dst = random_graph(500, 4_000, seed=1)
+    nodes, s, r = neighbor_sample(*build_csr(src, dst, 500), np.arange(32), (5, 4), rng)
+    nodes, s, r, em, nm = pad_subgraph(nodes, s, r, 512, 1024)
+    node_class = {"positions": synth_positions(nodes),
+                  "node_feat": rng.normal(size=(512, 12)).astype(np.float32),
+                  "node_mask": nm, "senders": s, "receivers": r, "edge_mask": em,
+                  "graph_ids": np.zeros(512, np.int32),
+                  "labels": rng.integers(0, 5, 512).astype(np.int32),
+                  "label_mask": (np.arange(512) < 32).astype(np.float32)}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    for task, arrays, n_graphs in (("energy", energy, 8), ("node_class", node_class, 1)):
+        cfg = arch.smoke_cfg if task == "energy" else dataclasses.replace(
+            arch.smoke_cfg, d_feat=12, n_classes=5, task="node_class")
+        runs = []
+        for dev in ("cuda", "cuda", "cpu"):
+            model = MACEModel(cfg, device="cpu", seed=2).to(dev)   # one draw, both devices
+            state = init_train_state(dict(model.named_parameters()))
+            step = make_gnn_train_step(model, opt, task=task, n_graphs=n_graphs)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+            losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+            runs.append((losses, {n: p.detach().cpu() for n, p in model.named_parameters()}))
+        (l0, p0), (l1, p1), (lc, pc) = runs
+        assert l0 == l1 and all(torch.equal(p0[n], p1[n]) for n in p0), task
+        np.testing.assert_allclose(l0, lc, rtol=1e-4, atol=1e-4)
+        for n in p0:
+            torch.testing.assert_close(p0[n], pc[n], rtol=1e-4, atol=1e-4)

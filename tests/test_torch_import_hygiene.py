@@ -31,7 +31,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_attention.ops", "repro_torch.data.lm",
             "repro_torch.configs.gemma2_2b", "repro_torch.optim.adamw",
             "repro_torch.optim.sparse_adam", "repro_torch.train.steps",
-            "repro_torch.ckpt.manager", "repro_torch.launch.train"} <= set(names)
+            "repro_torch.ckpt.manager", "repro_torch.launch.train",
+            "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.configs.gnn_common", "repro_torch.configs.mace",
+            "repro_torch.models.e3", "repro_torch.models.mace",
+            "repro_torch.data.graphs"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -93,6 +97,14 @@ def test_entry_points_without_device_need_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_arrays({}, cfg)
     assert TransformerLM(cfg, device="cpu").device.type == "cpu"
+    from repro_torch.convert import mace_params_from_arrays
+    from repro_torch.models.mace import MACEModel
+    mcfg = get_arch("mace").smoke_cfg
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MACEModel(mcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mace_params_from_arrays({}, mcfg)
+    assert MACEModel(mcfg, device="cpu").device.type == "cpu"
     from repro_torch.launch import train as launch_train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--steps", "1"])

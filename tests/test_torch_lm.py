@@ -33,7 +33,8 @@ from repro_torch.convert import lm_params_from_arrays
 from repro_torch.data import TokenStream, lm_batches
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, gated_act
-from repro_torch.models.transformer import MoESettings, TransformerLM
+from repro_torch.models import transformer
+from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.lm import greedy_generate, make_decode_step, prefill_step
 
 LM_ARCHS = ["smollm-360m", "qwen3-14b", "gemma2-2b"]
@@ -156,19 +157,22 @@ def test_rope_and_gated_act_match_jax(dtype):
 
 
 @pytest.mark.parametrize("switch", ["moe_shard_map", "moe_fsdp", "moe_psum_bf16"])
-def test_moe_sharding_switch_raises(switch):
-    """JAX's MoE sharding switches would change nothing here: set, they
-    raise rather than be ignored."""
-    cfg = dataclasses.replace(configs.get_arch("gemma2-2b").smoke_cfg, **{switch: True})
-    with pytest.raises(NotImplementedError, match=switch):
-        TransformerLM(cfg, device="cpu")
-
-
-def test_moe_config_raises():
-    cfg = dataclasses.replace(configs.get_arch("smollm-360m").smoke_cfg,
-                              moe=MoESettings(n_experts=4, top_k=2, d_expert=64))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TransformerLM(cfg, device="cpu")
+def test_moe_sharding_switch_raises(switch, monkeypatch):
+    """JAX's MoE sharding switches change nothing without a mesh: set, on one
+    device, the logits equal those of the switch unset bit for bit. In a
+    process group of more than one rank the MoE block raises (expert
+    parallelism waits for ROADMAP Queue A item 6)."""
+    base = dataclasses.replace(configs.get_arch("qwen2-moe-a2.7b").smoke_cfg,
+                               moe_shard_map=False)
+    off = TransformerLM(base, device="cpu", seed=3)
+    on = TransformerLM(dataclasses.replace(base, **{switch: True}), device="cpu", seed=3)
+    toks = torch.from_numpy(_tokens("qwen2-moe-a2.7b", 2, 16))
+    (l_off, a_off, _), (l_on, a_on, _) = off(toks), on(toks)
+    assert torch.equal(l_off, l_on) and torch.equal(a_off, a_on)
+    monkeypatch.setattr(transformer, "_group_size", lambda: 2)
+    assert torch.equal(off(toks)[0], l_off)          # unset: no sharding to refuse
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        on(toks)
 
 
 @pytest.mark.parametrize("arch_id", LM_ARCHS)

@@ -209,8 +209,6 @@ def test_unported_training_paths_and_a_ragged_microbatch_raise():
         steps.make_lm_train_step(None, AdamWConfig(), compress_pod=True)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         steps.init_train_state({}, compress=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        steps.make_gnn_train_step(None, AdamWConfig())
     m = configs.get_arch("smollm-360m").smoke_model(device="cpu")
     step = steps.make_lm_train_step(m, AdamWConfig(), microbatches=3)
     b = {k: torch.from_numpy(v) for k, v in _lm_batch(m.cfg.vocab, 4, 8, 0).items()}
