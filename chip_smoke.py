@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's recsys, LM, MoE, GNN and QAC paths on one NVIDIA card.
 
     python3 chip_smoke.py [--queries N] [--vocab V] [--batch B] [--seed S]
-                          [--train | --moe | --gnn | --probe]
+                          [--train | --moe | --gnn | --shard | --probe]
 
 Phases, each printing its lines before the next starts:
   1. the card, its power limit and the software versions;
@@ -201,8 +201,31 @@ Phases, each printing its lines before the next starts:
      and parameters after a step within 1e-4 (norm-relative) of the same
      step on the CPU at the two small shapes, the energy unchanged by a
      rotation at molecule (rtol 2e-4); ogb_products reported as waiting for
-     the port's distribution work;
- 14. one JSON line naming every kernel with its launches, times and bound.
+     a machine with several cards;
+ 14. sharded execution (``shard_phase``; one card, so no group of more
+     than one rank): (a) qwen2-moe-a2.7b at full width in bf16 on a one-rank
+     NCCL group (``file://`` rendezvous) and a (1, 1) ``DeviceMesh`` on the
+     card, its parameters DTensors (``shard_params``) under its prefill and
+     decode rules: ``prefill_step`` at B=1, S=4,096 and 4 ``decode_step``s at
+     B=16 against a 4,096-token cache, logits bit-identical to the unsharded
+     route on the same weights and tokens, one flash_attention launch a
+     layer a call (counted: the phase's main path), and a control (the first
+     decode step 32 cache columns short) the check must reject; (b) the
+     expert-parallel MoE block rank by rank (``EPRankByRank``): each rank's
+     body (its expert slots, ``moe_ep_partial``) run on the card in turn and
+     the partials summed in rank order, at every MoE block of a prefill:
+     qwen2-moe at model 2 and 4 (fp32 at 2 layers within 1e-5; bf16 at full
+     width by the floor rule) and qwen3-moe-235b-a22b at (data 2, model 4)
+     with moe_fsdp (fp32 at 2 layers, bf16 at 4 of 94), each data shard with
+     its own capacity, each with a control (rank 0's partial left out) the
+     check must reject; (c) ``compress_pod`` at pod 2, the pod
+     played by a ``ReplicaGroup`` on gemma2-2b's full-width bf16 train step
+     (B=1, S=4,096): ms a step with and without it, peak memory, and on one
+     step's gradients over 3 rounds the residual within half a step, the
+     error feedback carried (what was sent plus the residual is what was
+     meant), two runs bit-identical, and a control (a common scale half too
+     small) the check must reject;
+ 15. one JSON line naming every kernel with its launches, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch or failure
 exits non-zero; without a card it exits non-zero before printing a result.
 """
@@ -280,7 +303,7 @@ KERNELS = {   # name -> (ops module, its launch counter, CUDA source, the TPU
     "flash_attention": ("repro_torch.kernels.flash_attention.ops", "launches",
                         "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:93",
-                        ("lm", "train", "moe", "moe_train")),
+                        ("lm", "train", "moe", "moe_train", "shard")),
     # the gradients of the two TPU kernels on the training path (the JAX
     # package differentiates their references by autodiff)
     "flash_attention_bwd": ("repro_torch.kernels.flash_attention.ops", "bwd_launches",
@@ -309,7 +332,8 @@ ROUTE_KERNELS = {"kernels": ("heap_topk", "conjunctive_topk"),
                  "train": ("flash_attention", "flash_attention_bwd", "fm_pairwise",
                            "fm_pairwise_bwd"),
                  "moe": ("flash_attention",),
-                 "moe_train": ("flash_attention", "flash_attention_bwd")}
+                 "moe_train": ("flash_attention", "flash_attention_bwd"),
+                 "shard": ("flash_attention",)}
 # the __global__ each wrapper launches, as the profiler names it
 TRACE_TAGS = {"rmq_query": "rmq_query_kernel(",
               "heap_topk": "heap_topk_kernel<qac::RawLookup>",
@@ -2631,12 +2655,395 @@ def mace_phase(torch, dev, seed, smi, reset_counts, read_counts) -> dict:
         torch.cuda.empty_cache()
     o = GNN_SHAPES["ogb_products"]
     say(f"[mace] ogb_products ({o['n_nodes']:,} nodes, {o['n_edges']:,} edges, padded "
-        f"{o['pad_nodes']:,} / {o['pad_edges']:,}) waits for ROADMAP Queue A item 6: its [E, C, "
-        f"9] fp32 messages alone are {o['pad_edges'] * 128 * 9 * 4 / 1e9:.0f} GB, more than one "
-        f"card's 80 GB, so it needs edges sharded over cards; it is not cut")
+        f"{o['pad_nodes']:,} / {o['pad_edges']:,}) waits for a machine with several cards "
+        f"(ROADMAP Queue A item 6c): its [E, C, 9] fp32 messages alone are "
+        f"{o['pad_edges'] * 128 * 9 * 4 / 1e9:.0f} GB, more than one card's 80 GB, so it needs "
+        f"edges sharded over cards; it is not cut")
     say(f"[mace] summary: {json.dumps(out)}; phase took {time.perf_counter() - t_phase:.1f} s "
         f"on {smi}")
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 14: sharded execution
+# --------------------------------------------------------------------------
+# (a) a one-rank NCCL group on a (1, 1) mesh: the DTensor path at full
+# width must give the unsharded logits bit for bit; (b) the expert-parallel
+# bodies, rank by rank on the card; (c) compress_pod at pod 2, emulated.
+SHARD_SEQ = 4096            # (a)'s prefill, and its decode cache
+SHARD_FP32_SEQ = 1024       # (b)'s fp32 prefills at 2 layers
+QWEN3_EP_SEQ = 2048         # (b)'s qwen3-moe prefills, B=2 (a sequence a data shard)
+SHARD_B_DEC = 16
+SHARD_DEC_STEPS = 4
+SHARD_FP32_TOL = 1e-5       # (b) in fp32: the EP block within this of the one-process block
+SHARD_FLOOR_X = 1.5         # (b) in bf16: within this many floors (MOE_FLOOR_X)
+SHARD_EP = ((2, 1), (4, 1))     # qwen2-moe's (model, data)
+QWEN3_EP = (4, 2)               # qwen3-moe-235b-a22b's (model, data), with moe_fsdp
+POD = 2                     # (c): the pod members a ReplicaGroup plays
+POD_ROUNDS = 3
+POD_TRAIN_STEPS = 3
+# the residual of a round is within half a quantisation step, up to the
+# rounding of g / scale before its rounding to an integer (|q| <= 127 ulps)
+POD_HALF_STEP_X = 1 + 1e-4
+
+
+class EPRankByRank:
+    """Replaces ``model._routed_experts`` (the MoE block's routed experts on
+    one device) while open by the expert-parallel block run rank by rank:
+    for each of ``dp`` data shards, the router on the shard's tokens, then
+    each of the ``ep`` model ranks' body (``moe_ep_partial`` on its slice
+    of the expert slots, the ff dim gathered from its ``fsdp`` data shards
+    by concatenation) and the partials summed in rank order (in bf16 under
+    ``psum_bf16`` or a bf16 model), the sum cast to the activations' dtype.
+    Each block's output is held against the one-process block on the same
+    choices (``experts_apply`` over every expert, the shard's own capacity),
+    and in bf16 against that block with fp32 activations and weights (the
+    floor rule): ``records`` gets one (distance, floor or None) a block.
+    ``drop`` leaves out rank 0's partial (the control; a rank of padded
+    slots alone would change nothing)."""
+
+    def __init__(self, torch, model, ep, dp, fsdp=1, psum_bf16=False, drop=False):
+        self.torch, self.model, self.ep, self.dp = torch, model, ep, dp
+        self.fsdp, self.psum_bf16, self.drop, self.records = fsdp, psum_bf16, drop, []
+
+    def __enter__(self):
+        from repro_torch.models.transformer import (experts_apply, load_balance_aux,
+                                                    moe_capacity, moe_ep_partial)
+
+        torch, model, ep, dp = self.torch, self.model, self.ep, self.dp
+        cfg, m = model.cfg, model.cfg.moe
+        names = ("we_gate", "we_up", "we_down")
+        el = m.e_padded // ep
+
+        def block(lp, h):
+            B, S, d = h.shape
+            cap = moe_capacity((B // dp) * S, m)
+            outs, counts, probs = [], 0, 0
+            for s in range(dp):
+                hs = h[s * B // dp:(s + 1) * B // dp].reshape(-1, d)
+                idx, gates, (cnt, ps) = model._route(lp, hs, stats=True)
+                counts, probs = counts + cnt, probs + ps
+                total = None
+                for r in range(1 if self.drop else 0, ep):
+                    ws = [lp[n][r * el:(r + 1) * el] for n in names]
+                    if self.fsdp > 1:     # the all_gather of the ff shards, written out
+                        ws = [torch.cat(w.chunk(self.fsdp, dim=ff), dim=ff)
+                              for w, ff in zip(ws, (2, 2, 1))]
+                    part = moe_ep_partial(hs, idx, gates, *ws, rank=r, ep=ep, m=m,
+                                          capacity=cap, act=cfg.act, psum_bf16=self.psum_bf16)
+                    total = part if total is None else total + part
+                out = total.to(h.dtype)
+                E = m.n_experts
+                ref = experts_apply(hs, idx, gates, *(lp[n][:E] for n in names), cap, cfg.act)
+                if h.dtype == torch.float32 and not self.psum_bf16:
+                    self.records.append((float((out - ref).abs().max()), None))
+                else:
+                    r32 = experts_apply(hs.float(), idx, gates, *(lp[n][:E].float() for n in names),
+                                        cap, cfg.act)
+                    self.records.append((float((out.float() - r32).abs().max()),
+                                         float((ref.float() - r32).abs().max())))
+                outs.append(out)
+            aux = load_balance_aux(counts, probs, B * S, m)
+            return torch.cat(outs).reshape(B, S, d), aux
+
+        model._routed_experts = block
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._routed_experts
+
+    def verdict(self):
+        """(worst distance, its limit, whether every block passed)."""
+        worst, limit, ok = 0.0, 0.0, True
+        for dist_, floor in self.records:
+            lim = SHARD_FP32_TOL if floor is None else SHARD_FLOOR_X * floor
+            ok &= dist_ <= lim
+            if dist_ / max(lim, 1e-30) >= worst / max(limit, 1e-30):
+                worst, limit = dist_, lim
+        return worst, limit, ok and bool(self.records)
+
+
+def unshard(torch, model):
+    """Each DTensor parameter of ``model`` back to a plain one (its local
+    tensor: the whole of it on a one-rank mesh)."""
+    for name, p in list(model.named_parameters()):
+        if hasattr(p, "to_local"):
+            owner, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            setattr(mod, leaf, torch.nn.Parameter(p.to_local(), requires_grad=p.requires_grad))
+
+
+def shard_phase(torch, dev, seed, smi, reset_counts, read_counts) -> dict:
+    """(a) qwen2-moe-a2.7b at full width on a one-rank NCCL group and a
+    (1, 1) ``DeviceMesh``, its parameters DTensors (``shard_params``):
+    prefill at B=1, S=4,096 and 4 decode steps at B=16 against a
+    4,096-token cache, logits bit-identical to the unsharded route on the
+    same weights and tokens, one flash_attention a layer a call, and a
+    control (the first decode step's attentions 32 cache columns short)
+    that the check must reject; (b) the expert-parallel block rank by rank
+    (``EPRankByRank``): qwen2-moe at model 2 and 4, qwen3-moe-235b-a22b's
+    4 layers at (data 2, model 4) with moe_fsdp, fp32 at 2 layers within
+    1e-5 and bf16 at full width by the floor rule, each with the control
+    of rank 0 left out; (c) ``compress_pod`` at pod 2 emulated by a
+    ``ReplicaGroup`` on gemma2-2b's full-width train step: ms per step with
+    and without it, peak memory, the residual within half a step, the error
+    feedback carried over 3 rounds, two runs bit-identical and a control (a
+    wrong common scale) rejected. Returns {"shard": the launch counts of
+    (a)'s counted calls}."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import LM_SHAPES, rules_for
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed.sharding import mesh_context, shard_params
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.transformer import TransformerLM, expert_parallel
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve.lm import prefill_step
+    from repro_torch.train import init_train_state, make_lm_train_step
+    from repro_torch.train import steps as train_steps
+
+    t_phase = time.perf_counter()
+    counts = {}
+    main_run = counter(torch, reset_counts, read_counts, "flash_attention", "shard", counts)
+    check_run = counter(torch, reset_counts, read_counts, "flash_attention", "shard")
+    arch = get_arch("qwen2-moe-a2.7b")
+    cfg = arch.cfg
+    L = cfg.n_layers
+    stream = TokenStream.synthetic(vocab=cfg.vocab, n_docs=400, seed=seed)
+    toks = torch.from_numpy(stream.tokens[:SHARD_SEQ].reshape(1, SHARD_SEQ).copy()).to(dev)
+    dec_toks = torch.from_numpy(stream.tokens[SHARD_SEQ:SHARD_SEQ + SHARD_B_DEC * SHARD_DEC_STEPS]
+                                .reshape(SHARD_DEC_STEPS, SHARD_B_DEC).copy()).to(dev)
+    pos = [SHARD_SEQ - 1 - (97 * b) % (SHARD_SEQ // 2) for b in range(SHARD_B_DEC)]
+
+    def seeded(cache, cache_seed):
+        gen = torch.Generator(device=dev).manual_seed(cache_seed)
+        with torch.inference_mode():
+            for t in (*cache["k"], *cache["v"]):
+                t.normal_(generator=gen).mul_(0.02)
+            cache["pos"].copy_(torch.tensor(pos, dtype=torch.int32))
+        return cache
+
+    def decode(model, short=False):
+        cache = seeded(model.init_cache(SHARD_B_DEC, SHARD_SEQ), seed + 7)
+        outs, orig = [], fa_ops.flash_decode
+        if short:
+            fa_ops.flash_decode = lambda q, k, v, kv_len, **kw: orig(
+                q, k, v, torch.clamp(kv_len - FLASH_DROP, min=1), **kw)
+        try:
+            for t in range(1 if short else SHARD_DEC_STEPS):
+                logits, cache = model.decode_step(cache, dec_toks[t])
+                outs.append(logits)
+        finally:
+            fa_ops.flash_decode = orig
+        return outs
+
+    def step_ms(model):
+        """ms a decode step (host clock to a synchronise), the median of
+        steps 2-4 on one seeded cache."""
+        cache, walls = seeded(model.init_cache(SHARD_B_DEC, SHARD_SEQ), seed + 7), []
+        for t in range(SHARD_DEC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = model.decode_step(cache, dec_toks[t])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls[1:])) * 1e3
+
+    # -- (a) the DTensor path on a one-rank NCCL group ---------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = TransformerLM(cfg, device=dev, seed=seed)
+    want_pre = check_run(lambda: prefill_step(model, toks), L)
+    want_dec = check_run(lambda: decode(model), L * SHARD_DEC_STEPS)
+    plain_pre, plain_dec = median_ms(torch, lambda: prefill_step(model, toks), 3), step_ms(model)
+    rdv = tempfile.mkdtemp(prefix="shard_phase_")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        with mesh_context(mesh, rules_for(arch, "prefill")):
+            shard_params(model, model.param_axes(), mesh)
+            n_dt = sum(hasattr(p, "to_local") for p in model.parameters())
+            got_pre = main_run(lambda: prefill_step(model, toks), L)
+            t_pre = median_ms(torch, lambda: prefill_step(model, toks), 3)
+        with mesh_context(mesh, rules_for(arch, "decode")):
+            shard_params(model, model.param_axes(), mesh)
+            got_dec = main_run(lambda: decode(model), L * SHARD_DEC_STEPS)
+            t_dec = step_ms(model)
+            short = check_run(lambda: decode(model, short=True), L)
+        got = [got_pre.full_tensor()] + [x.full_tensor() for x in got_dec]
+        want = [want_pre] + want_dec
+        diffs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        ctl = float((short[0].full_tensor() - want_dec[0]).abs().max())
+        if not all(same):
+            fail(f"shard (a): the DTensor route's logits differ from the unsharded route's: "
+                 f"max |diff| {diffs} (prefill, then each decode step)")
+        if torch.equal(short[0].full_tensor(), want_dec[0]):
+            fail("shard (a): the bit-identity check passes a route 32 cache columns short")
+        say(f"[shard] (a) qwen2-moe-a2.7b bf16 at full width on a one-rank NCCL group, (1, 1) "
+            f"mesh, {n_dt} DTensor parameters: prefill_step B=1 S={SHARD_SEQ} and "
+            f"{SHARD_DEC_STEPS} decode steps at B={SHARD_B_DEC} against {SHARD_SEQ} tokens give "
+            f"the unsharded route's logits bit for bit; {L} flash_attention launches a call; "
+            f"prefill {t_pre:.2f} ms (unsharded {plain_pre:.2f}; medians of 3), decode "
+            f"{t_dec:.2f} ms a step (unsharded {plain_dec:.2f}; medians of steps 2-"
+            f"{SHARD_DEC_STEPS}); control (the first decode step {FLASH_DROP} cache columns "
+            f"short) differs by {ctl:.3g}, rejected; on {smi}")
+    finally:
+        dist.destroy_process_group()
+        for f in Path(rdv).glob("*"):
+            f.unlink()
+        os.rmdir(rdv)
+    unshard(torch, model)
+
+    # -- (b) the expert-parallel bodies rank by rank ------------------------------
+    def ep_case(model, ep, dp, fsdp, toks_, what, want_launches):
+        c = model.cfg
+        if not expert_parallel(dataclasses.replace(c, moe_shard_map=True), {"model": ep}):
+            fail(f"shard (b) {what}: {c.moe.e_padded} expert slots do not split over {ep} ranks")
+        with EPRankByRank(torch, model, ep, dp, fsdp=fsdp, psum_bf16=c.moe_psum_bf16) as run:
+            logits = check_run(lambda: prefill_step(model, toks_), want_launches)
+        with EPRankByRank(torch, model, ep, dp, fsdp=fsdp, psum_bf16=c.moe_psum_bf16,
+                          drop=True) as ctl:
+            check_run(lambda: prefill_step(model, toks_), want_launches)
+        worst, limit, ok = run.verdict()
+        cworst, _, cok = ctl.verdict()
+        if not ok or not bool(torch.isfinite(logits).all()):
+            fail(f"shard (b) {what}: a block is {worst:.3g} from the one-process block, "
+                 f"beyond {limit:.3g}")
+        if cok:
+            fail(f"shard (b) {what}: the check passes the block with rank 0's partial left "
+                 f"out ({cworst:.3g})")
+        rule = ("fp32, within " + str(SHARD_FP32_TOL) if limit == SHARD_FP32_TOL
+                else f"bf16, the floor rule ({SHARD_FLOOR_X} x the one-process bf16 block's "
+                     f"distance from its fp32 form)")
+        say(f"[shard] (b) {what}: {len(run.records)} MoE blocks, each the ranks' partials summed "
+            f"in rank order; worst block {worst:.3g} against a limit of {limit:.3g} ({rule}); "
+            f"control (rank 0 left out) {cworst:.3g}, rejected; {want_launches} "
+            f"flash_attention launches; on {smi}")
+        return {"worst": worst, "limit": limit, "control": cworst}
+
+    ep_rec = {}
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    m32 = TransformerLM(cfg32, device=dev, seed=seed)
+    t2 = toks[:, :SHARD_FP32_SEQ]
+    for ep, dp in SHARD_EP:
+        ep_rec[f"qwen2-moe fp32 ep={ep}"] = ep_case(
+            m32, ep, dp, 1, t2, f"qwen2-moe fp32 (2 layers, no TF32) model={ep}, B=1 "
+            f"S={SHARD_FP32_SEQ}", 2)
+    del m32
+    for ep, dp in SHARD_EP:
+        ep_rec[f"qwen2-moe bf16 ep={ep}"] = ep_case(
+            model, ep, dp, 1, toks, f"qwen2-moe bf16 full width ({L} layers) model={ep}, "
+            f"B=1 S={SHARD_SEQ}", L)
+    del model
+    torch.cuda.empty_cache()
+    q3 = get_arch("qwen3-moe-235b-a22b").cfg
+    ep, dp = QWEN3_EP
+    q3t = torch.from_numpy(stream.tokens[:2 * QWEN3_EP_SEQ].reshape(2, QWEN3_EP_SEQ).copy()
+                           % q3.vocab).to(dev)
+    for what, c in (("fp32 (2 layers, no TF32)", dataclasses.replace(
+            q3, n_layers=2, dtype=torch.float32, param_dtype=torch.float32)),
+                    (f"bf16 ({QWEN3_MOE_LAYERS} of {q3.n_layers} layers)",
+                     dataclasses.replace(q3, n_layers=QWEN3_MOE_LAYERS))):
+        m = TransformerLM(c, device=dev, seed=seed)
+        ep_rec[f"qwen3-moe {what.split()[0]}"] = ep_case(
+            m, ep, dp, dp, q3t, f"qwen3-moe-235b-a22b {what} (data {dp}, model {ep}) moe_fsdp, "
+            f"B=2 S={QWEN3_EP_SEQ}", c.n_layers)
+        del m
+        torch.cuda.empty_cache()
+
+    # -- (c) compress_pod at pod 2 on gemma2-2b's train step -----------------------
+    g2 = get_arch("gemma2-2b").cfg
+    S = LM_SHAPES["train_4k"]["seq"]
+    gt = torch.from_numpy(TokenStream.synthetic(vocab=g2.vocab, seed=seed).tokens[:S + 1]
+                          .copy()).to(dev)
+    batch = {"tokens": gt[None, :S], "targets": gt[None, 1:],
+             "mask": torch.ones((1, S), device=dev)}
+    model = TransformerLM(g2, device=dev, seed=seed)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=POD_TRAIN_STEPS)
+    pod = comp.ReplicaGroup(POD)
+    train_ms, peaks = {}, {}
+    for name, kw in (("plain", {}), ("compress_pod", dict(compress_pod=True, pod_group=pod))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(dict(model.named_parameters()), compress=bool(kw))
+        step = make_lm_train_step(model, opt, **kw)
+        walls = []
+        for _ in range(POD_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            if not math.isfinite(float(met["loss"])):
+                fail(f"shard (c) {name}: loss {float(met['loss'])}")
+            walls.append(time.perf_counter() - t0)
+        train_ms[name] = float(np.median(walls[1:])) * 1e3
+        peaks[name] = torch.cuda.max_memory_allocated()
+        del state, step
+    torch.cuda.empty_cache()
+    loss = model.loss_fn(batch["tokens"], batch["targets"], batch["mask"])
+    grads = dict(zip([n for n, _ in model.named_parameters()],
+                     torch.autograd.grad(loss, list(model.parameters()))))
+    del loss
+
+    class WrongScale(comp.ReplicaGroup):          # the control: a common max half too small
+        def all_reduce(self, t, op):
+            return t.mul_(0.5) if op == dist.ReduceOp.MAX else super().all_reduce(t, op)
+
+    def rounds(g, group):
+        """POD_ROUNDS rounds of the step's compression on g x (1 + round)
+        from a zero residual: (worst |residual| / half a step, the carry's
+        worst relative gap, the last sum and residual)."""
+        ef = torch.zeros(g.shape, dtype=torch.float32, device=dev)
+        sent = torch.zeros_like(ef)
+        true = torch.zeros_like(ef)
+        bound = 0.0
+        for r in range(POD_ROUNDS):
+            gr = g.float() * (1 + r)
+            g32 = gr / POD + ef
+            scale = torch.clamp(g32.abs().max(), min=1e-12) * comp._INV_127
+            out, ef_new = train_steps._maybe_compress_pod({"g": gr}, {"g": ef}, None, group)
+            ef = ef_new["g"]
+            bound = max(bound, float(ef.abs().max() / (scale / 2)))
+            sent += out["g"]
+            true += gr
+        # error feedback: what was sent plus pod x the residual left is what was meant
+        gap = float((sent + POD * ef - true).abs().max() / true.abs().max().clamp(min=1e-30))
+        return bound, gap, out["g"], ef
+
+    worst_bound, worst_gap, same, n_t = 0.0, 0.0, True, 0
+    for n, g in grads.items():
+        b1, gap, o1, e1 = rounds(g, pod)
+        _, _, o2, e2 = rounds(g, pod)
+        same &= bool(torch.equal(o1, o2) and torch.equal(e1, e2))
+        worst_bound, worst_gap, n_t = max(worst_bound, b1), max(worst_gap, gap), n_t + 1
+    cb, _, _, _ = rounds(grads["embed"], WrongScale(POD))
+    if not (worst_bound <= POD_HALF_STEP_X and worst_gap <= 1e-5 and same):
+        fail(f"shard (c): residual at {worst_bound:.6g} of half a step, carry gap "
+             f"{worst_gap:.3g}, two runs bit-identical: {same}")
+    if cb <= POD_HALF_STEP_X:
+        fail(f"shard (c): the residual check passes a wrong common scale ({cb:.3g})")
+    ef_bytes = sum(g.numel() * 4 for g in grads.values())
+    say(f"[shard] (c) compress_pod at pod {POD} (a ReplicaGroup plays the pod on one card) on "
+        f"gemma2-2b's bf16 train step B=1 S={S} at full width: {train_ms['plain']:.1f} ms a step "
+        f"without it, {train_ms['compress_pod']:.1f} ms with it (median of steps 2-"
+        f"{POD_TRAIN_STEPS}); peak {peaks['plain'] / 2**30:.2f} -> "
+        f"{peaks['compress_pod'] / 2**30:.2f} GiB (the fp32 residuals {ef_bytes / 1e9:.2f} GB); "
+        f"over {n_t} tensors x {POD_ROUNDS} rounds the residual is at most "
+        f"{worst_bound:.6f} of half a step, sent + {POD} x residual equals the gradients' sum "
+        f"within {worst_gap:.3g} of its largest element, two runs bit-identical; control (a "
+        f"common scale half too small) {cb:.3g} of half a step, rejected; on {smi}")
+    del model, grads
+    torch.cuda.empty_cache()
+    summary = {"dtensor_ms": {"prefill": t_pre, "decode": t_dec},
+               "plain_ms": {"prefill": plain_pre, "decode": plain_dec}, "ep": ep_rec,
+               "train_ms": train_ms, "peak_bytes": peaks}
+    say(f"[shard] summary: {json.dumps(summary)}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return {"shard": counts}
 
 
 # --------------------------------------------------------------------------
@@ -3101,6 +3508,9 @@ def main() -> int:
                     help="only the MoE phase (12) after the build; prints no result line")
     ap.add_argument("--gnn", action="store_true",
                     help="only the MACE phase (13) after the build; prints no result line")
+    ap.add_argument("--shard", action="store_true",
+                    help="only the sharded-execution phase (14) after the build; prints no "
+                         "result line")
     ap.add_argument("--probe", action="store_true",
                     help="only the live index's probes after the build: the drill on "
                          "the real clock, and MainCorpusView's two paths at the log's "
@@ -3246,13 +3656,16 @@ def main() -> int:
         lap("train")
         say(json.dumps({name: cases for name, cases in results.items()}))
         return 0
-    if args.moe or args.gnn:
+    if args.moe or args.gnn or args.shard:
         if args.moe:
             say(json.dumps(moe_phase(torch, dev, args.seed, smi, reset_counts, read_counts)))
             lap(12)
         if args.gnn:
             mace_phase(torch, dev, args.seed, smi, reset_counts, read_counts)
             lap(13)
+        if args.shard:
+            say(json.dumps(shard_phase(torch, dev, args.seed, smi, reset_counts, read_counts)))
+            lap(14)
         return 0
 
     # ---- 3. recsys serving --------------------------------------------------
@@ -3708,7 +4121,11 @@ def main() -> int:
     mace_phase(torch, dev, args.seed, smi, reset_counts, read_counts)
     lap(13)
 
-    # ---- 14. kernels line ---------------------------------------------------
+    # ---- 14. sharded execution -------------------------------------------------
+    counted.update(shard_phase(torch, dev, args.seed, smi, reset_counts, read_counts))
+    lap(14)
+
+    # ---- 15. kernels line ---------------------------------------------------
     launches = {name: sum(counted[r][name] for r in v[4]) for name, v in KERNELS.items()}
     say(f"[launches] on the main paths, each kernel from its routes' runs: {launches}")
     line = []

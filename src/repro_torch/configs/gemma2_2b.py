@@ -24,4 +24,6 @@ ARCH = LMArch(
         dtype=torch.float32, param_dtype=torch.float32, remat=False,
     ),
     supports_long=True,   # local layers are sub-quadratic
+    # pure DP + ZeRO-1 (8 heads shard unevenly 16 ways)
+    rule_overrides={"heads": None, "kv_heads": None, "d_ff": None, "seq": None},
 )

@@ -2,8 +2,8 @@
 
 The JAX package's ``lowerable`` (mesh lowering with edges and nodes sharded
 over the mesh) and its analytic FLOPs and traffic wait for the port's
-distribution work (ROADMAP Queue A item 6); so does ``ogb_products`` on the
-card, whose [E, C, 9] fp32 messages alone are 285 GB.
+dry-run (ROADMAP Queue A item 6b); ``ogb_products``, whose [E, C, 9] fp32
+messages alone are 285 GB, waits for several cards (item 6c).
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ Index sizing mirrors Table 2 EBAY x a production-year growth factor: 10M
 completions, 1M unique terms, ~3.1 postings/completion. The JAX package's
 ``QACArch`` also lowers a docid-striped index onto a TPU mesh
 (``index_specs``, ``lowerable``); those parts wait for the port's
-distribution work (ROADMAP Queue A item 6). What the serving stack reads is
+dry-run (ROADMAP Queue A item 6b). What the serving stack reads is
 here: the widths, ``k``, the engine routes (``frontend``), the online
 runtime's, cluster's, live index's and observability's knobs, and the
 arch's cells over ``QAC_SHAPES``.

@@ -28,4 +28,7 @@ ARCH = LMArch(
         dtype=torch.float32, param_dtype=torch.float32, remat=False,
     ),
     supports_long=False,
+    # experts over model; attention and the shared expert in pure DP
+    rule_overrides={"experts": "model", "expert_ff": None,
+                    "heads": None, "kv_heads": None, "d_ff": None},
 )

@@ -20,4 +20,13 @@ ARCH = LMArch(
         dtype=torch.float32, param_dtype=torch.float32, remat=False,
     ),
     supports_long=False,
+    # full FSDP in training (batch over data x model, weights gathered);
+    # decode shards d_ff over model; prefill B=32 shards the sequence
+    train_microbatches=1,
+    rule_overrides={"batch": ("data", "model"), "heads": "data",
+                    "kv_heads": "data", "d_ff": "data", "seq": None},
+    decode_rule_overrides={"batch": ("pod", "data"), "heads": None,
+                           "kv_heads": None, "d_ff": "model"},
+    prefill_rule_overrides={"batch": ("pod", "data"), "heads": None,
+                            "kv_heads": None, "d_ff": "model", "seq": "model"},
 )

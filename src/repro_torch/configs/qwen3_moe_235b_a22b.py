@@ -1,7 +1,7 @@
 """qwen3-moe-235b-a22b [hf:Qwen/Qwen3-235B-A22B]: 128 experts top-8, qk_norm.
 94L d_model=4096 64H (GQA kv=4) head_dim=128 d_ff(expert)=1536 vocab=151936.
-At full depth its weights (~470 GB in bf16) need several cards: the sharded
-path waits for ROADMAP Queue A item 6."""
+At full depth its weights (~470 GB in bf16) need several cards: its run
+across them waits for a machine that has them (ROADMAP Queue A item 6c)."""
 import torch
 
 from .lm_common import LMArch
@@ -28,4 +28,10 @@ ARCH = LMArch(
         dtype=torch.float32, param_dtype=torch.float32, remat=False,
     ),
     supports_long=False,
+    # no microbatching (FSDP shards memory already); the experts' ff over
+    # data, kv projections replicated (4 kv heads shard unevenly 16 ways)
+    train_microbatches=1,
+    rule_overrides={"expert_ff": "data", "kv_heads": None},
+    # big-model serving: the attention projections over model too
+    decode_rule_overrides={"heads": "model"},
 )

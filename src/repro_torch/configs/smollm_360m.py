@@ -19,4 +19,6 @@ ARCH = LMArch(
         dtype=torch.float32, param_dtype=torch.float32, remat=False,
     ),
     supports_long=False,
+    # pure DP + ZeRO-1 (the JAX package's choice at 360M parameters)
+    rule_overrides={"heads": None, "kv_heads": None, "d_ff": None, "seq": None},
 )

@@ -57,12 +57,18 @@ def gated_act(gate: torch.Tensor, up: torch.Tensor, kind: str) -> torch.Tensor:
 
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
-    """Normal / sqrt(fan_in), drawn on the generator's device."""
+    """Normal / sqrt(fan_in), drawn on the generator's device (no generator:
+    an empty tensor on ``meta``, for shapes only)."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, device=generator.device)
     return w.div_(shape[in_axis] ** 0.5).to(dtype)
 
 
 def embed_init(shape, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
-    """Normal * 0.02, drawn on the generator's device."""
+    """Normal * 0.02, drawn on the generator's device (no generator: an
+    empty tensor on ``meta``)."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, device=generator.device)
     return w.mul_(0.02).to(dtype)

@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..backend import resolve_device
+from ..distributed.sharding import shard_hint
 from .e3 import L_SLICES, N_LM, bessel_rbf, gaunt_tensor, poly_cutoff, real_sph_harm, \
     tensor_product
 from .layers import clamp_rows, dense_init
@@ -156,7 +157,7 @@ class MACEModel(nn.Module):
         rw = torch.cat([r[:, :, li:li + 1].expand(-1, -1, sl.stop - sl.start)
                         for li, (_, sl) in enumerate(sorted(L_SLICES.items()))], dim=2)
         msg = msg * rw * edge_mask[:, None, None]
-        A = segment_sum(msg, receivers, N)                               # [N, C, 9]
+        A = shard_hint(segment_sum(msg, receivers, N), "nodes", None, None)   # [N, C, 9]
         # higher-order products (correlation order 3)
         B2 = tensor_product(A, A, self.gaunt)
         B3 = tensor_product(B2, A, self.gaunt)

@@ -23,8 +23,10 @@ device-side assert):
     (:func:`take_rows`);
   * ``jax.ops.segment_sum``: out-of-range segment ids are dropped.
 
-Not ported yet: ``param_axes`` and ``shard_hint`` (sharding over the TPU
-mesh).
+``param_axes`` gives each parameter's logical axes (JAX's: the tables'
+rows over "table_rows", everything else replicated) and ``shard_hint`` sits
+at JAX's sites; without a mesh (``distributed/sharding.py``) the hints
+return their input and nothing changes.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..backend import default_use_kernel, resolve_device
+from ..distributed.sharding import shard_hint
 from ..kernels.fm_pairwise import ops as fm_ops
 from ..kernels.fm_pairwise.ref import fm_forward_ref, fm_pairwise_ref
 # clamp_rows is also imported from here
@@ -102,7 +105,7 @@ class Dense(nn.Module):
     def __init__(self, d_in: int, d_out: int, g: torch.Generator, dtype):
         super().__init__()
         self.w = nn.Parameter(dense_init((d_in, d_out), g, dtype=dtype))
-        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=g.device))
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=self.w.device))
 
     def forward(self, x):
         return x @ self.w + self.b
@@ -129,10 +132,17 @@ class _Recsys(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._g = torch.Generator(device=self.device).manual_seed(seed)
+        self._g = (None if self.device.type == "meta"     # shapes only: empty meta tensors
+                   else torch.Generator(device=self.device).manual_seed(seed))
+
+    _AXES: dict = {}   # parameter name -> logical axes; any other: (None,)
 
     def _embed(self, shape):
         return nn.Parameter(embed_init(shape, self._g, dtype=self.cfg.dtype))
+
+    def param_axes(self) -> dict:
+        """{parameter name: logical axes}, JAX's ``param_axes``."""
+        return {n: self._AXES.get(n, (None,)) for n, _ in self.named_parameters()}
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +158,9 @@ class FMModel(_Recsys):
     forward and, in the backward, one ``fm_pairwise_bwd`` launch.
     """
 
+    _AXES = {"tables": (None, "table_rows", None), "linear": (None, "table_rows", None),
+             "bias": ()}
+
     def __init__(self, cfg: RecsysConfig, device=None, seed: int = 0):
         super().__init__(cfg, device, seed)
         c = cfg
@@ -159,7 +172,10 @@ class FMModel(_Recsys):
 
     def forward(self, feats):
         """feats["sparse_ids"] int[B, F] -> logits [B]."""
-        args = (feats["sparse_ids"], self.tables, self.linear, self.bias)
+        # JAX hints the gathered rows [B, F, D] ("batch", None, None); the
+        # fused forward gathers them inside, so the ids carry the batch's
+        args = (shard_hint(feats["sparse_ids"], "batch", None), self.tables, self.linear,
+                self.bias)
         if torch.is_grad_enabled() and any(p.requires_grad for p in args[1:]):
             return fm_forward_ref(*args, pairwise=(fm_ops.fm_pairwise if self.use_kernel
                                                    else fm_pairwise_ref))
@@ -169,6 +185,8 @@ class FMModel(_Recsys):
 # ---------------------------------------------------------------------------
 class DINModel(_Recsys):
     """Deep Interest Network (arXiv:1706.06978): target attention over history."""
+
+    _AXES = {"item_table": ("table_rows", None), "cate_table": ("table_rows", None)}
 
     def __init__(self, cfg: RecsysConfig, device=None, seed: int = 0):
         super().__init__(cfg, device, seed)
@@ -208,12 +226,14 @@ class BSTBlock(nn.Module):
         for name, shape in (("wq", (d, d)), ("wk", (d, d)), ("wv", (d, d)),
                             ("wo", (d, d)), ("ff1", (d, 4 * d)), ("ff2", (4 * d, d))):
             setattr(self, name, nn.Parameter(dense_init(shape, g, dtype=dtype)))
-        self.ln1 = nn.Parameter(torch.zeros(d, dtype=dtype, device=g.device))
-        self.ln2 = nn.Parameter(torch.zeros(d, dtype=dtype, device=g.device))
+        self.ln1 = nn.Parameter(torch.zeros(d, dtype=dtype, device=self.wq.device))
+        self.ln2 = nn.Parameter(torch.zeros(d, dtype=dtype, device=self.wq.device))
 
 
 class BSTModel(_Recsys):
     """Behavior Sequence Transformer (arXiv:1905.06874)."""
+
+    _AXES = {"item_table": ("table_rows", None)}
 
     def __init__(self, cfg: RecsysConfig, device=None, seed: int = 0):
         super().__init__(cfg, device, seed)
@@ -272,13 +292,16 @@ class MINDModel(_Recsys):
     unless ``convert.recsys_params_from_arrays`` fills it.
     """
 
+    _AXES = {"item_table": ("table_rows", None), "s_matrix": (None, None)}
+
     def __init__(self, cfg: RecsysConfig, device=None, seed: int = 0):
         super().__init__(cfg, device, seed)
         c, d = cfg, cfg.embed_dim
         self.item_table = self._embed((c.item_vocab, d))
         self.s_matrix = nn.Parameter(dense_init((d, d), self._g, dtype=c.dtype))
         self.register_buffer("routing_init", torch.randn(
-            (c.n_interests, c.seq_len), generator=self._g, device=self.device))
+            (c.n_interests, c.seq_len), generator=self._g, device=self.device)
+            if self._g is not None else torch.empty((c.n_interests, c.seq_len), device="meta"))
 
     def interests(self, hist_ids, hist_mask):
         """Capsule B2I dynamic routing -> [B, K, D] interest capsules."""
@@ -308,7 +331,8 @@ class MINDModel(_Recsys):
         """Score users against n_cand items: batched dot + max over interests
         -> (values float[B, k], indices int32[B, k]), best first."""
         caps = self.interests(feats["hist_items"], feats["hist_mask"])
-        score = torch.einsum("bkd,nd->bkn", caps, cand_emb).amax(1)   # [B, N]
+        s = shard_hint(torch.einsum("bkd,nd->bkn", caps, cand_emb), "batch", None, "candidates")
+        score = s.amax(1)                                             # [B, N]
         vals, idx = torch.topk(score, k)
         return vals, idx.to(torch.int32)
 

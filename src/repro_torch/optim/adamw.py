@@ -44,7 +44,7 @@ def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init_opt_state(params: dict) -> dict:
     """fp32 zero moments for every parameter and an int32 step of 0."""
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32)     # a DTensor's placements too
              for n, p in params.items()}
     device = next(iter(params.values())).device if params else None
     return {"mu": zeros, "nu": {n: torch.zeros_like(z) for n, z in zeros.items()},

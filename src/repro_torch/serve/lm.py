@@ -4,10 +4,11 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import no_grad_serving
 from ..models.transformer import TransformerLM
 
 
-@torch.inference_mode()
+@no_grad_serving
 def prefill_step(model: TransformerLM, tokens):
     """tokens int32[B, S] -> fp32 logits of the LAST position [B, V].
 
@@ -28,7 +29,7 @@ def make_decode_step(model: TransformerLM):
     return step
 
 
-@torch.inference_mode()
+@no_grad_serving
 def greedy_generate(model: TransformerLM, prompt, max_new: int, max_len: int):
     """Host loop: the prompt through repeated decode steps (a simple
     reference generator), then ``max_new`` argmax tokens -> int64[B, max_new]."""

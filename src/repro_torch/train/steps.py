@@ -19,8 +19,15 @@ dict itself).
     energy task (``energy_force_loss`` without force targets) or node
     classification.
 
-Not ported: ``compress_pod`` (the int8 cross-pod gradient compression
-needs the port's distribution work, ROADMAP Queue A item 6) raises.
+  * ``compress_pod``: under a mesh whose ``pod`` axis is > 1 each gradient
+    crosses the pods as int8 with error feedback (JAX's
+    ``_maybe_compress_pod``): the gradient that enters is the global one
+    (a DTensor gradient is made whole first), every pod member adds its
+    quantised copy of ``g / pod`` through ``psum_compressed`` over the
+    mesh's ``pod`` group, and the sum goes back to the parameter's
+    placements. ``state.ef`` holds fp32 residuals of each parameter's global
+    shape on every rank (``init_train_state(compress=True)``), updated in
+    place like the moments. Without such a mesh it changes nothing.
 """
 from __future__ import annotations
 
@@ -29,33 +36,31 @@ from typing import Any, Callable
 
 import torch
 
+from ..distributed.compression import init_ef, psum_compressed
+from ..distributed.sharding import as_dtensor, get_mesh, mesh_shape, plain_as_replicated
 from ..kernels.fm_pairwise import ops as fm_ops
 from ..kernels.fm_pairwise.ref import clamp_rows, fm_pairwise_ref
 from ..optim.adamw import AdamWConfig, adamw_update, cosine_lr, init_opt_state
 from ..optim.sparse_adam import sparse_table_update
 
-COMPRESS_POD = ("compress_pod: int8 cross-pod gradient compression needs the port's "
-                "distribution work (ROADMAP Queue A item 6)")
-
-
 @dataclasses.dataclass
 class TrainState:
     params: dict       # name -> the model's parameter
     opt: dict          # {"mu": {...}, "nu": {...}, "step": int32 []}
-    ef: dict           # error-feedback buffers: empty (compress_pod is not ported)
+    ef: dict           # compress_pod's error-feedback buffers (empty without it)
 
 
 def init_train_state(params: dict, *, compress: bool = False) -> TrainState:
-    if compress:
-        raise NotImplementedError(COMPRESS_POD)
-    return TrainState(params=dict(params), opt=init_opt_state(params), ef={})
+    return TrainState(params=dict(params), opt=init_opt_state(params),
+                      ef=init_ef(params) if compress else {})
 
 
 def _grads(loss, params: dict) -> dict:
     """d loss / d params; zeros (in the parameter's dtype) for a parameter
     the loss does not reach, as JAX's grad gives."""
     names = list(params)
-    got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+    with plain_as_replicated():          # the backward meets the blocks' plain tensors too
+        got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
     return {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, got)}
 
 
@@ -87,28 +92,58 @@ def _accumulate_grads(loss_fn: Callable, params: dict, batch, microbatches: int)
     return total * inv, {n: g * inv for n, g in acc.items()}
 
 
-def _make_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, microbatches: int = 1,
-               compress_pod: bool = False):
-    if compress_pod:
-        raise NotImplementedError(COMPRESS_POD)
+def _maybe_compress_pod(grads: dict, ef: dict, mesh, group=None):
+    """int8 sum over the pod (module docstring) -> (grads, ef), both dicts
+    updated in place: each gradient replaced by its sum and each residual
+    written over as it is made, so neither is held twice. ``group`` stands
+    in for the mesh's ``pod`` group (a ``ReplicaGroup`` plays a pod on one
+    device)."""
+    if group is None:
+        if mesh is None or mesh_shape(mesh).get("pod", 1) <= 1:
+            return grads, ef
+        group = mesh.get_group("pod")
+    pod = group.size()
+    for n, g in grads.items():
+        sharded = hasattr(g, "full_tensor")
+        total, new_ef = psum_compressed((g.full_tensor() if sharded else g) / pod, group, ef[n])
+        ef[n].copy_(new_ef)
+        grads[n] = (as_dtensor(total, g.device_mesh).redistribute(g.device_mesh,
+                                                                  _summed_placements(g))
+                    if sharded else total)
+    return grads, ef
 
+
+def _summed_placements(g) -> tuple:
+    """A gradient's placements with any ``Partial`` (already summed into the
+    whole gradient) replicated."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return tuple(Replicate() if isinstance(p, Partial) else p for p in g.placements)
+
+
+def _make_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, microbatches: int = 1,
+               compress_pod: bool = False, pod_group=None):
     def train_step(state: TrainState, batch):
         loss, grads = _accumulate_grads(loss_fn, state.params, batch, microbatches)
-        params, opt, metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
+        ef = state.ef
+        if compress_pod:
+            grads, ef = _maybe_compress_pod(grads, ef, get_mesh(), pod_group)
+        with plain_as_replicated():
+            params, opt, metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
         metrics["loss"] = loss
-        return TrainState(params=params, opt=opt, ef=state.ef), metrics
+        return TrainState(params=params, opt=opt, ef=ef), metrics
 
     return train_step
 
 
 # -- family-specific wrappers -------------------------------------------------
 def make_lm_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
-                       compress_pod: bool = False):
+                       compress_pod: bool = False, pod_group=None):
     def loss_fn(params, batch):
         return model.loss_fn(batch["tokens"], batch["targets"], batch["mask"])
 
     return _make_step(loss_fn, opt_cfg, microbatches=microbatches,
-                      compress_pod=compress_pod)
+                      compress_pod=compress_pod, pod_group=pod_group)
 
 
 def make_gnn_train_step(model, opt_cfg: AdamWConfig, *, task: str = "energy",

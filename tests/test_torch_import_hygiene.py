@@ -35,7 +35,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.qwen3_moe_235b_a22b",
             "repro_torch.configs.gnn_common", "repro_torch.configs.mace",
             "repro_torch.models.e3", "repro_torch.models.mace",
-            "repro_torch.data.graphs"} <= set(names)
+            "repro_torch.data.graphs", "repro_torch.distributed",
+            "repro_torch.distributed.sharding", "repro_torch.distributed.compression",
+            "repro_torch.launch.mesh"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -58,7 +60,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("root", ["src/repro_torch", "chip_smoke.py",
                                   "scripts/fm_forward_sweep.py",
-                                  "scripts/attention_bwd_sweep.py"])
+                                  "scripts/attention_bwd_sweep.py",
+                                  "scripts/shard_gloo_probe.py"])
 def test_no_source_names_jax_or_repro(root):
     p = ROOT / root
     files = sorted(p.rglob("*.py")) if p.is_dir() else [p]
@@ -108,6 +111,11 @@ def test_entry_points_without_device_need_a_card():
     from repro_torch.launch import train as launch_train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--steps", "1"])
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        make_local_mesh()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_production_mesh(device="cpu")
     assert resolve_device("cpu").type == "cpu"
     qidx, _, _ = build_qac_index(["a b", "a c"], [1.0, 2.0], device="cpu")
     assert qidx.device.type == "cpu"

@@ -157,22 +157,43 @@ def test_rope_and_gated_act_match_jax(dtype):
 
 
 @pytest.mark.parametrize("switch", ["moe_shard_map", "moe_fsdp", "moe_psum_bf16"])
-def test_moe_sharding_switch_raises(switch, monkeypatch):
+def test_moe_sharding_switch_raises(switch, tmp_path):
     """JAX's MoE sharding switches change nothing without a mesh: set, on one
-    device, the logits equal those of the switch unset bit for bit. In a
-    process group of more than one rank the MoE block raises (expert
-    parallelism waits for ROADMAP Queue A item 6)."""
+    device, the logits equal those of the switch unset bit for bit. The
+    expert-parallel branch is taken only under JAX's condition (a mesh whose
+    ``model`` axis is > 1 and divides ``e_padded``, with ``moe_shard_map``),
+    not by the size of a process group: on a one-rank gloo group with a
+    (1, 1) mesh and the parameters as DTensors the set switch runs the
+    gathered branch and gives the unset logits bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.sharding import mesh_context, shard_params
+
     base = dataclasses.replace(configs.get_arch("qwen2-moe-a2.7b").smoke_cfg,
                                moe_shard_map=False)
+    on_cfg = dataclasses.replace(base, **{switch: True})
     off = TransformerLM(base, device="cpu", seed=3)
-    on = TransformerLM(dataclasses.replace(base, **{switch: True}), device="cpu", seed=3)
+    on = TransformerLM(on_cfg, device="cpu", seed=3)
     toks = torch.from_numpy(_tokens("qwen2-moe-a2.7b", 2, 16))
     (l_off, a_off, _), (l_on, a_on, _) = off(toks), on(toks)
     assert torch.equal(l_off, l_on) and torch.equal(a_off, a_on)
-    monkeypatch.setattr(transformer, "_group_size", lambda: 2)
-    assert torch.equal(off(toks)[0], l_off)          # unset: no sharding to refuse
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        on(toks)
+    ep = switch == "moe_shard_map"
+    assert not transformer.expert_parallel(on_cfg, None)
+    assert not transformer.expert_parallel(on_cfg, {"data": 1, "model": 1})
+    assert not transformer.expert_parallel(on_cfg, {"pod": 2, "data": 2, "model": 1})
+    assert transformer.expert_parallel(on_cfg, {"data": 1, "model": 2}) == ep
+    assert transformer.expert_parallel(on_cfg, {"pod": 2, "data": 2, "model": 3}) == ep
+    assert not transformer.expert_parallel(on_cfg, {"data": 1, "model": 4})  # 6 experts
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        with mesh_context(mesh):
+            shard_params(on, on.param_axes(), mesh)
+            l_mesh, a_mesh, _ = on(toks)
+        assert torch.equal(l_mesh.full_tensor(), l_off)
+        assert torch.equal(a_mesh.full_tensor(), a_off)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch_id", LM_ARCHS)

@@ -260,7 +260,8 @@ def test_lm_train_steps_match_jax():
 def test_moe_configs_equal_jax(arch_id):
     """Every field of cfg and smoke_cfg but the torch-typed ones (the MoE
     settings and the sharding switches included), the parameter counts, the
-    arch's supports_long, and JAX's parameter names and shapes."""
+    arch's supports_long, microbatches and rule overrides, and JAX's
+    parameter names and shapes."""
     port, ref = configs.get_arch(arch_id), jax_get_arch(arch_id)
     for c_t, c_j in ((port.cfg, ref.cfg), (port.smoke_cfg, ref.smoke_cfg)):
         f_t, f_j = dataclasses.asdict(c_t), dataclasses.asdict(c_j)
@@ -278,4 +279,6 @@ def test_moe_configs_equal_jax(arch_id):
         {k: v.shape for k, v in params_to_arrays(params).items()}
     assert tm.layers["router"].dtype == torch.float32
     assert isinstance(port.smoke_model(device="cpu"), TransformerLM)
-    assert transformer._group_size() == 1          # no process group: one rank
+    for f in ("train_microbatches", "rule_overrides", "decode_rule_overrides",
+              "prefill_rule_overrides"):
+        assert getattr(port, f) == getattr(ref, f), f

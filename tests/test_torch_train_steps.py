@@ -205,11 +205,25 @@ def test_fm_sparse_train_step_matches_jax():
 
 
 def test_unported_training_paths_and_a_ragged_microbatch_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        steps.make_lm_train_step(None, AdamWConfig(), compress_pod=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        steps.init_train_state({}, compress=True)
+    """``compress=True`` builds fp32 zero error-feedback buffers of every
+    parameter's shape, and ``compress_pod`` without a mesh changes nothing:
+    the step equals the uncompressed one bit for bit. A microbatch count
+    that does not divide the batch raises."""
     m = configs.get_arch("smollm-360m").smoke_model(device="cpu")
+    m2 = configs.get_arch("smollm-360m").smoke_model(device="cpu")
+    params = dict(m.named_parameters())
+    st = steps.init_train_state(params, compress=True)
+    assert set(st.ef) == set(params)
+    for n, e in st.ef.items():
+        assert e.dtype == torch.float32 and e.shape == params[n].shape and not e.any()
+    assert steps.init_train_state(params).ef == {}
+    b = {k: torch.from_numpy(v) for k, v in _lm_batch(m.cfg.vocab, 4, 8, 0).items()}
+    st, met = steps.make_lm_train_step(m, AdamWConfig(**OPT), compress_pod=True)(st, b)
+    st2, met2 = steps.make_lm_train_step(m2, AdamWConfig(**OPT))(
+        steps.init_train_state(dict(m2.named_parameters())), b)
+    assert torch.equal(met["loss"], met2["loss"])
+    for n, p in st.params.items():
+        assert torch.equal(p, st2.params[n]) and not st.ef[n].any(), n
     step = steps.make_lm_train_step(m, AdamWConfig(), microbatches=3)
     b = {k: torch.from_numpy(v) for k, v in _lm_batch(m.cfg.vocab, 4, 8, 0).items()}
     with pytest.raises(ValueError, match="microbatches=3"):
